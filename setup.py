@@ -7,8 +7,10 @@ setup(
     description=("TPU-native randomized Haseman-Elston regression: "
                  "RHE, RHE-DOM and GENIE heritability estimation on "
                  "JAX/XLA/Pallas"),
-    packages=find_packages(include=["pyrhe_tpu", "pyrhe_tpu.*"]),
-    package_data={"pyrhe_tpu.io": ["_native/*.cpp"]},
+    packages=find_packages(include=["pyrhe_tpu", "pyrhe_tpu.*",
+                                    "pyrhe_tpu_torch", "pyrhe_tpu_torch.*"]),
+    package_data={"pyrhe_tpu.io": ["_native/*.cpp"],
+                  "pyrhe_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

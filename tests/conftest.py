@@ -73,3 +73,9 @@ def load_geno_nan(prefix, num_indiv, num_snp):
     g = bed.read_block(0, num_snp).astype(np.float64).T  # (N, M)
     g[g == 255] = np.nan
     return g
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one (on the "
+        "card: python -m pytest --noconftest tests/test_torch_cuda.py)")
