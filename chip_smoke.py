@@ -10,18 +10,28 @@ non-zero without printing a result:
    limit (nvidia-smi) and the torch / CUDA versions;
 2. build: compiles the CUDA kernels (csrc/rhe_kernels.cu) with nvcc, timed,
    with the compiler's register / shared-memory report;
-3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card at the main path's shapes (m_pad 1024, n_pad 100352, stage-1 width
-   22 / 44 split, stage-2 rows 320), split and unsplit; ytg_acc must equal
-   ytg plus the tensor transform bitwise; median times of both;
-4. main path at a biobank cohort's size: N = 100,000 individuals x
-   M = 100,000 SNPs (a 2.5 GB .bed), 8 bins, 4 covariates, J = 100, B = 10,
-   through RHE(...) cached and StreamingRHE(...), and through the CLI with
-   --streaming; cached == streaming bitwise, total h2 within 3 SE of the
-   simulated truth, every kernel launched;
-5. cross-check on the example dataset (N = 5000, M = 10000): the card
-   (bf16 split2) against the port on the CPU (f32) and the reference
-   implementation's published run.
+3. kernels vs plain: each of the six kernels (gp, ytg, each also with
+   square=True, ytg_acc, ytg_acc2) against its plain PyTorch version on the
+   card at the main paths' shapes (m_pad 1024, n_pad 100352, stage-1 width
+   22 / 44 split, stage-2 rows 320 split: K = 8 bins x b2 = 20 probe
+   columns of one component), split and unsplit; ytg_acc must equal ytg
+   plus the tensor transform bitwise, ytg_acc2 two ytg calls (g, g²) plus
+   the transform; median times of both;
+4. the two main paths at a biobank cohort's size, on one synthesized
+   cohort (pyrhe_tpu_torch/cohort.py, which profile_run shares):
+   N = 100,000 individuals x M = 100,000 SNPs (a 2.5 GB .bed), 8 bins,
+   4 covariates, J = 100, B = 10. Each path (RHE: RHE(...) and
+   StreamingRHE(...); RHE-DOM: RHE_DOM(...) and StreamingRHE_DOM(...)) runs
+   cached and streaming with the launch counts set to 0 just before and
+   read just after, then through the CLI with --streaming; per path:
+   the cached run kept its stats cache (12.8 GB for RHE-DOM), cached ==
+   streaming bitwise, total h2 within 3 SE of the simulated truth (the
+   cohort has no dominance effect), every kernel of the path launched,
+   the CLI's sigma^2 equal to the streaming model's;
+5. cross-check on the example dataset (N = 5000, M = 10000): RHE (1 bin)
+   and RHE-DOM (8 bins) on the card (bf16 split2) against the port on the
+   CPU (f32), the reference implementation's published RHE run and both
+   RHE-DOM golden outputs in example/outputs.
 
 The last two lines are a JSON object of per-kernel results and the
 {"ok": true, "device": ...} line.
@@ -41,12 +51,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# Phase-3 shapes: one jackknife block of the phase-4 run.
+# Phase-3 shapes: one jackknife block of the phase-4 runs.
 M_PAD, N_PAD, W, QR = 1024, 100352, 22, 320
 RTOL = 1e-4                      # f32 summation order over ~1e5 / ~1e3 terms
-# Phase-4 cohort.
-N_BIG, M_BIG, BINS, NCOV, J_BIG, B_BIG = 100_000, 100_000, 8, 4, 100, 10
-SIGMA = [0.05] * BINS            # per-bin h2; truth total 0.4
 # Reference implementation's run on the example dataset (values and SEs),
 # as in tests/test_golden_example.py REFERENCE_RUN.
 REFERENCE_RUN = {
@@ -57,8 +64,11 @@ REFERENCE_RUN = {
 SPLIT2_RTOL = 3e-4               # tests/test_engine_vs_oracle.py envelope
 REPLACES = {
     "gp_matmul": "pyrhe_tpu/ops/kernels.py:476",
+    "gp_matmul_square": "pyrhe_tpu/ops/kernels.py:476",
     "ytg_matmul": "pyrhe_tpu/ops/kernels.py:524",
+    "ytg_matmul_square": "pyrhe_tpu/ops/kernels.py:524",
     "ytg_acc_matmul": "pyrhe_tpu/ops/kernels.py:407",
+    "ytg_acc2_matmul": "pyrhe_tpu/ops/kernels.py:346",
 }
 
 
@@ -152,27 +162,31 @@ def phase_kernels():
         if split:
             r.update(ms=ms, plain_ms=plain_ms)
 
-    for split, Cop in ((False, C), (True, _hilo(C, 1).contiguous())):
-        got = K.gp_matmul(words, Cop)
-        ref = K.gp_plain(words, Cop)
-        err = _close(f"gp_matmul split={split}", got, ref)
-        ms = _median_ms(lambda: K.gp_matmul(words, Cop))
-        pms = _median_ms(lambda: K.gp_plain(words, Cop), reps=5)
-        record("gp_matmul", split, err, ms, pms)
-        log(f"[3 kernels] gp_matmul split={split} C {tuple(Cop.shape)} "
-            f"{Cop.dtype}: max abs err {err:.3e}; kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms")
+    for square in (False, True):
+        name = "gp_matmul_square" if square else "gp_matmul"
+        for split, Cop in ((False, C), (True, _hilo(C, 1).contiguous())):
+            got = K.gp_matmul(words, Cop, square)
+            ref = K.gp_plain(words, Cop, square)
+            err = _close(f"{name} split={split}", got, ref)
+            ms = _median_ms(lambda: K.gp_matmul(words, Cop, square))
+            pms = _median_ms(lambda: K.gp_plain(words, Cop, square), reps=5)
+            record(name, split, err, ms, pms)
+            log(f"[3 kernels] {name} split={split} C {tuple(Cop.shape)} "
+                f"{Cop.dtype}: max abs err {err:.3e}; kernel {ms:.4f} ms, "
+                f"plain {pms:.4f} ms")
 
-    for split, Yop in ((False, Yt), (True, Yh)):
-        got = K.ytg_matmul(words, Yop)
-        ref = K.ytg_plain(words, Yop)
-        err = _close(f"ytg_matmul split={split}", got, ref)
-        ms = _median_ms(lambda: K.ytg_matmul(words, Yop))
-        pms = _median_ms(lambda: K.ytg_plain(words, Yop), reps=5)
-        record("ytg_matmul", split, err, ms, pms)
-        log(f"[3 kernels] ytg_matmul split={split} Yt {tuple(Yop.shape)} "
-            f"{Yop.dtype}: max abs err {err:.3e}; kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms")
+    for square in (False, True):
+        name = "ytg_matmul_square" if square else "ytg_matmul"
+        for split, Yop in ((False, Yt), (True, Yh)):
+            got = K.ytg_matmul(words, Yop, square)
+            ref = K.ytg_plain(words, Yop, square)
+            err = _close(f"{name} split={split}", got, ref)
+            ms = _median_ms(lambda: K.ytg_matmul(words, Yop, square))
+            pms = _median_ms(lambda: K.ytg_plain(words, Yop, square), reps=5)
+            record(name, split, err, ms, pms)
+            log(f"[3 kernels] {name} split={split} Yt {tuple(Yop.shape)} "
+                f"{Yop.dtype}: max abs err {err:.3e}; kernel {ms:.4f} ms, "
+                f"plain {pms:.4f} ms")
 
     mask = (torch.rand(1, N_PAD, device=dev, generator=gen) < 0.9).float()
     for split, Yop in ((False, Yt[:Q].contiguous()), (True, Yh)):
@@ -206,18 +220,45 @@ def phase_kernels():
             f"{tuple(Yop.shape)} {Yop.dtype}: bitwise == ytg + transform; "
             f"max abs err vs plain {err:.3e}; kernel {ms:.4f} ms, plain "
             f"{pms:.4f} ms")
+
+    Yt2 = torch.randn(Q, M_PAD, device=dev, generator=gen)
+    Yt2[:, 1000:] = 0.0
+    for split, Y1, Y2 in ((False, Yt[:Q].contiguous(), Yt2),
+                          (True, Yh, _hilo(Yt2, 0).contiguous())):
+        rank1 = torch.randn(Q, 1, device=dev, generator=gen)
+        tot0 = torch.randn(Q, N_PAD, device=dev, generator=gen)
+        got = K.ytg_acc2_matmul(words, Y1, Y2, rank1, mask, tot0.clone(),
+                                split=split)
+        a1 = K.sum_halves(K.ytg_matmul(words, Y1), split)
+        a2 = K.sum_halves(K.ytg_matmul(words, Y2, square=True), split)
+        expect = tot0 + ((a1 + a2) - rank1) * mask
+        if not torch.equal(got, expect):
+            bad = (got != expect).sum().item()
+            raise AssertionError(
+                f"ytg_acc2_matmul split={split}: {bad} elements differ from "
+                "two ytg_matmul calls + transform (must be bitwise equal)")
+        ref = K.ytg_acc2_plain(words, Y1, Y2, rank1, mask, tot0.clone(),
+                               split)
+        err = _close(f"ytg_acc2_matmul split={split}", got, ref)
+        tot = tot0.clone()
+        ms = _median_ms(lambda: K.ytg_acc2_matmul(
+            words, Y1, Y2, rank1, mask, tot, split=split))
+        pms = _median_ms(lambda: K.ytg_acc2_plain(
+            words, Y1, Y2, rank1, mask, tot, split), reps=5)
+        record("ytg_acc2_matmul", split, err, ms, pms)
+        log(f"[3 kernels] ytg_acc2_matmul split={split} Yt1, Yt2 "
+            f"{tuple(Y1.shape)} {Y1.dtype}: bitwise == two ytg + transform;"
+            f" max abs err vs plain {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms")
     torch.cuda.synchronize()
     return res
 
 
 def _make_cohort(d):
-    from pyrhe_tpu_torch.io import synth
-    prefix = os.path.join(d, "cohort")
+    from pyrhe_tpu_torch import cohort
     t0 = time.perf_counter()
-    synth.make_dataset_fast(prefix, N_BIG, M_BIG, SIGMA, seed=11,
-                            missing_rate=0.01)
-    synth.make_cov_file(prefix + ".cov", N_BIG, num_cov=NCOV, seed=11)
-    log(f"[4 main] synthesized N={N_BIG} M={M_BIG} "
+    prefix = cohort.make(os.path.join(d, "cohort"))
+    log(f"[4 main] synthesized N={cohort.N} M={cohort.M} "
         f"({os.path.getsize(prefix + '.bed') / 1e9:.2f} GB .bed) in "
         f"{time.perf_counter() - t0:.1f} s")
     return prefix
@@ -225,13 +266,10 @@ def _make_cohort(d):
 
 def _run_model(cls, prefix):
     import torch
-    from pyrhe_tpu_torch import Logger
+    from pyrhe_tpu_torch import cohort
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = cls(geno_file=prefix, annot_file=prefix + ".annot",
-                pheno_file=prefix + ".pheno", cov_file=prefix + ".cov",
-                num_jack=J_BIG, num_random_vec=B_BIG, seed=5, device="cuda",
-                log=Logger(suppress=True, debug_mode=False))
+    model = cohort.model(cls, prefix)
     t_load = time.perf_counter() - t0
     t1 = time.perf_counter()
     res = model(trait=0)
@@ -248,66 +286,92 @@ def _fmt_phases(pt):
     return ", ".join(f"{k} {v:.3f}" for k, v in pt.items())
 
 
-def phase_main(d):
-    from pyrhe_tpu_torch import RHE, StreamingRHE
+def _drive_path(prefix, label, model, cls_c, cls_s, kernels):
+    """One main path, cached and streaming, with the launch counts set to
+    0 just before and read just after; then its CLI --streaming run.
+    Returns the launch counts."""
+    import torch
+    from pyrhe_tpu_torch import cohort
     from pyrhe_tpu_torch.ops import kernels as K
     from parse_output import parse_output_file
 
-    prefix = _make_cohort(d)
     K.reset_launch_counts()
-    cached, res_c, pt_c = _run_model(RHE, prefix)
-    streaming, res_s, pt_s = _run_model(StreamingRHE, prefix)
-    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    cached, res_c, pt_c = _run_model(cls_c, prefix)
+    streaming, res_s, pt_s = _run_model(cls_s, prefix)
+    launches = dict(K.launches)
+    tag = f"[4 main {label}]"
     if cached.engine.cfg.streaming:
-        raise AssertionError("the cached run switched to streaming")
-    log(f"[4 main] cached phases (s): {_fmt_phases(pt_c)}")
-    log(f"[4 main] streaming phases (s): {_fmt_phases(pt_s)}")
-    log(f"[4 main] launches in the two runs: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched by the main path")
+        raise AssertionError(f"{label}: the cached run switched to streaming")
+    log(f"{tag} cached phases (s): {_fmt_phases(pt_c)}")
+    log(f"{tag} streaming phases (s): {_fmt_phases(pt_s)}")
+    log(f"{tag} launches in the two runs: {launches}")
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched by the {label} "
+                                 "path")
     eq_T = np.array_equal(cached.engine.T_all, streaming.engine.T_all)
     eq_q = np.array_equal(cached.engine.q_all, streaming.engine.q_all)
     if not (eq_T and eq_q):
-        raise AssertionError(f"cached != streaming (T equal {eq_T}, "
+        raise AssertionError(f"{label}: cached != streaming (T equal {eq_T}, "
                              f"q equal {eq_q})")
     for key in ("sigma_ests_total", "sig_errs", "h2_total", "h2_errs"):
         if not np.all(np.isfinite(res_c[key])):
-            raise AssertionError(f"non-finite {key}: {res_c[key]}")
+            raise AssertionError(f"{label}: non-finite {key}: {res_c[key]}")
     h2, se = float(res_c["h2_total"][-1]), float(res_c["h2_errs"][-1])
-    truth = sum(SIGMA)
-    log(f"[4 main] total h2 {h2:.5f} SE {se:.5f}, simulated truth {truth}; "
+    truth = sum(cohort.SIGMA)
+    log(f"{tag} total h2 {h2:.5f} SE {se:.5f}, simulated truth {truth}; "
         f"cached == streaming bitwise (T_all, q_all)")
     if abs(h2 - truth) > 3 * se:
-        raise AssertionError(f"total h2 {h2} is more than 3 SE from {truth}")
+        raise AssertionError(f"{label}: total h2 {h2} is more than 3 SE "
+                             f"from {truth}")
+    del cached, streaming
+    torch.cuda.empty_cache()
 
-    out = os.path.join(d, "cli_streaming.txt")
+    out = os.path.join(os.path.dirname(prefix), f"cli_{model}_streaming.txt")
     t0 = time.perf_counter()
     subprocess.run(
-        [sys.executable, "-m", "pyrhe_tpu_torch.cli", "-g", prefix,
-         "-annot", prefix + ".annot", "-p", prefix + ".pheno", "-c",
-         prefix + ".cov", "-k", str(B_BIG), "-jn", str(J_BIG), "-s", "5",
-         "--streaming", "--device", "cuda", "-o", out, "--suppress"],
+        [sys.executable, "-m", "pyrhe_tpu_torch.cli", "--model", model,
+         *cohort.cli_args(prefix), "--streaming", "-o", out, "--suppress"],
         check=True, cwd=ROOT)
     got = parse_output_file(out)
     cli_sigma = [g["value"] for g in got["sigma2_g"]] + [
         got["sigma2_e"]["value"]]
     if cli_sigma != [float(v) for v in res_s["sigma_ests_total"]]:
-        raise AssertionError(f"CLI sigma {cli_sigma} != StreamingRHE "
+        raise AssertionError(f"{label}: CLI sigma {cli_sigma} != "
+                             f"{cls_s.__name__} "
                              f"{list(res_s['sigma_ests_total'])}")
-    log(f"[4 main] CLI --streaming run: {time.perf_counter() - t0:.1f} s "
-        "wall (new process, kernels already built); sigma equal to "
-        "StreamingRHE's")
+    log(f"{tag} CLI --model {model} --streaming run: "
+        f"{time.perf_counter() - t0:.1f} s wall (new process, kernels "
+        f"already built); sigma equal to {cls_s.__name__}'s")
     return launches
 
 
+def phase_main(d):
+    """Both main paths on one synthesized cohort; returns each kernel's
+    launches summed over the paths' runs."""
+    from pyrhe_tpu_torch import RHE, RHE_DOM, StreamingRHE, StreamingRHE_DOM
+    from pyrhe_tpu_torch.ops import kernels as K
+    prefix = _make_cohort(d)
+    total = dict.fromkeys(K.KERNELS, 0)
+    # (label, --model, cached class, streaming class, kernels it launches)
+    for path in (("RHE", "rhe", RHE, StreamingRHE,
+                  ("gp_matmul", "ytg_matmul", "ytg_acc_matmul")),
+                 ("RHE-DOM", "rhe_dom", RHE_DOM, StreamingRHE_DOM,
+                  K.KERNELS)):
+        for name, n in _drive_path(prefix, *path).items():
+            total[name] += n
+    return total
+
+
 def _example(d):
+    """The example dataset (example/make_example.py's seeds)."""
     from pyrhe_tpu_torch.io import synth
     cwd = os.getcwd()
     os.chdir(d)
     try:
         synth.make_dataset("test", 5000, 10000, seed=42, missing_rate=0.005)
         a1 = synth.make_annot("single.annot", 10000, 1, seed=42)
+        synth.make_annot("multi.annot", 10000, 8, seed=43)
         cov = synth.make_cov_file("test.cov", 5000, num_cov=5, seed=42)
         env = synth.make_env_file("test.env", 5000, num_env=1, seed=42)
         synth.simulate_pheno_file("test", "test", [0.2], a1, seed=44,
@@ -317,17 +381,44 @@ def _example(d):
     return os.path.join(d, "test")
 
 
-def phase_small(d):
-    from pyrhe_tpu_torch import RHE, Logger
-    prefix = _example(d)
+def _example_runs(cls, prefix, annot):
+    """{device: report} of one model on the example dataset (the example
+    configs' settings), on the card and on the CPU."""
+    from pyrhe_tpu_torch import Logger
     out = {}
     for device in ("cuda", "cpu"):
-        model = RHE(geno_file=prefix, annot_file=os.path.join(d,
-                                                              "single.annot"),
+        model = cls(geno_file=prefix, annot_file=annot,
                     pheno_file=prefix + ".pheno", cov_file=prefix + ".cov",
                     num_jack=100, num_random_vec=10, seed=42, device=device,
                     log=Logger(suppress=True, debug_mode=False))
         out[device] = model(trait=0)
+    return out
+
+
+def _check_golden(label, r, golden_path):
+    """Every sigma^2 and h2 within SE overlap of a golden output file."""
+    from parse_output import parse_output_file
+    g = parse_output_file(golden_path)
+    ests = [(f"sigma2_g{i}", x) for i, x in enumerate(g["sigma2_g"])] + [
+        ("sigma2_e", g["sigma2_e"])] + [
+        (f"h2_g{i}", x) for i, x in enumerate(g["h2_g"])] + [
+        ("total_h2", g["total_h2"])]
+    ours = list(zip(r["sigma_ests_total"], r["sig_errs"])) + list(
+        zip(r["h2_total"], r["h2_errs"]))
+    if len(ours) != len(ests):
+        raise AssertionError(f"{label}: {len(ours)} estimates vs "
+                             f"{len(ests)} in {golden_path}")
+    for (key, gv), (v, se) in zip(ests, ours):
+        if abs(v - gv["value"]) > se + gv["se"]:
+            raise AssertionError(
+                f"{label} {key} = {v} (SE {se}) outside SE overlap with "
+                f"{gv['value']} (SE {gv['se']}) of {golden_path}")
+
+
+def phase_small(d):
+    from pyrhe_tpu_torch import RHE, RHE_DOM
+    prefix = _example(d)
+    out = _example_runs(RHE, prefix, os.path.join(d, "single.annot"))
     vals = {}
     for device, r in out.items():
         vals[device] = {
@@ -344,9 +435,29 @@ def phase_small(d):
         if abs(g - c) > SPLIT2_RTOL * abs(c):
             raise AssertionError(f"{key}: cuda {g} vs cpu {c} outside the "
                                  f"split2 envelope rtol {SPLIT2_RTOL}")
-    log("[5 small] example N=5000 M=10000: " + "; ".join(
+    log("[5 small] RHE example N=5000 M=10000: " + "; ".join(
         f"{k} cuda {vals['cuda'][k][0]:.8f} cpu {vals['cpu'][k][0]:.8f} "
         f"ref {REFERENCE_RUN[k][0]:.8f}" for k in REFERENCE_RUN))
+
+    out = _example_runs(RHE_DOM, prefix, os.path.join(d, "multi.annot"))
+    s_gpu = np.asarray(out["cuda"]["sigma_ests_total"])
+    s_cpu = np.asarray(out["cpu"]["sigma_ests_total"])
+    atol = SPLIT2_RTOL * np.abs(s_cpu).max()
+    gap = np.abs(s_gpu - s_cpu)
+    if not np.all(gap <= atol + SPLIT2_RTOL * np.abs(s_cpu)):
+        raise AssertionError(f"RHE-DOM sigma cuda {s_gpu} vs cpu {s_cpu} "
+                             f"outside the split2 envelope (rtol "
+                             f"{SPLIT2_RTOL}, atol {atol:.3e})")
+    goldens = [os.path.join(ROOT, "example", "outputs", *sub,
+                            "no_streaming_bin_8.txt")
+               for sub in (("rhe_dom",), ("reference", "rhe_dom"))]
+    for device, r in out.items():
+        for path in goldens:
+            _check_golden(f"RHE-DOM {device}", r, path)
+    log(f"[5 small] RHE-DOM example, 8 bins: max |sigma cuda - cpu| "
+        f"{gap.max():.3e} (atol {atol:.3e}); sigma2_e cuda {s_gpu[-1]:.8f} "
+        f"cpu {s_cpu[-1]:.8f}; both within SE overlap of "
+        + " and ".join(os.path.relpath(p, ROOT) for p in goldens))
 
 
 def main():
@@ -362,13 +473,11 @@ def main():
         phase_small(d)
     src = os.path.relpath(K._SRC, ROOT)
     kernels = [{
-        "name": fn.__name__, "route": "cuda", "source": src,
-        "replaces": REPLACES[fn.__name__],
-        "launches": launches[fn.__name__],
-        "max_abs_err": kres[fn.__name__]["max_abs_err"],
-        "ms": kres[fn.__name__]["ms"],
-        "plain_ms": kres[fn.__name__]["plain_ms"],
-    } for fn in K.KERNELS]
+        "name": name, "route": "cuda", "source": src,
+        "replaces": REPLACES[name], "launches": launches[name],
+        "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
+        "plain_ms": kres[name]["plain_ms"],
+    } for name in K.KERNELS]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

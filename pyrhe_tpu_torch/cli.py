@@ -19,7 +19,7 @@ import time
 import numpy as np
 
 from .core.engine import unported
-from .models import RHE, StreamingRHE
+from .models import RHE, RHE_DOM, StreamingRHE, StreamingRHE_DOM
 from .utils.logger import Logger
 
 
@@ -212,7 +212,7 @@ def main(args):
     elif args.model == "genie":
         raise unported("GENIE (--model genie)", 11)
     elif args.model == "rhe_dom":
-        raise unported("RHE-DOM (--model rhe_dom)", 10)
+        cls = StreamingRHE_DOM if args.streaming else RHE_DOM
     else:
         raise ValueError("Unsupported Model")
 

@@ -1,6 +1,6 @@
 """The RHE estimation engine on PyTorch: one device, blocks one at a time.
 
-Port of pyrhe_tpu/core/engine.py for additive RHE in float32. Orchestrates
+Port of pyrhe_tpu/core/engine.py for RHE and RHE-DOM in float32. Orchestrates
 the method-of-moments pipeline over jackknife blocks:
 
   pass 1   for each SNP block j: host .bed read + imputation fills +
@@ -16,7 +16,8 @@ the method-of-moments pipeline over jackknife blocks:
 Streaming mode (cfg.streaming) recomputes block stats in pass 2 instead of
 caching them (O(E*N*B) device memory independent of J), and its pass 1
 adds each block straight into the totals through the aliased stage-2
-kernel (ops/kernels.ytg_acc_matmul). Both modes give bitwise-equal (T, q).
+kernels (ops/kernels.ytg_acc_matmul, ytg_acc2_matmul for dominance). Both
+modes give bitwise-equal (T, q).
 
 Every trait's residualized phenotype is an extra probe column, so all
 traits share one precompute and only q differs per trait.
@@ -62,7 +63,7 @@ class ModelSpec:
     include_nxe appends num_env analytic hetero-noise rows.
     Estimate ordering matches the reference's (with the corrected GxE
     indexing k_gxe = num_bin + e*num_bin + k, see SURVEY §2.6).
-    The engine runs model "rhe" only so far.
+    The engine runs models "rhe" and "rhe_dom" so far.
     """
     model: str
     genie_model: str = "G"
@@ -114,9 +115,8 @@ class RunConfig:
 
 def check_ported(spec: ModelSpec, cfg: RunConfig) -> None:
     """Raise for the model and settings the port does not run yet."""
-    if spec.model != "rhe":
-        raise unported(f"model {spec.model!r}",
-                       10 if spec.model == "rhe_dom" else 11)
+    if spec.model not in ("rhe", "rhe_dom"):
+        raise unported(f"model {spec.model!r}", 11)
     if cfg.dtype != "float32":
         raise unported(f"dtype {cfg.dtype!r}", 15)
     if cfg.mm_mode not in ("auto", "split2"):

@@ -1,3 +1,4 @@
 from .rhe import RHE, StreamingRHE
+from .rhe_dom import RHE_DOM, StreamingRHE_DOM
 
-__all__ = ["RHE", "StreamingRHE"]
+__all__ = ["RHE", "StreamingRHE", "RHE_DOM", "StreamingRHE_DOM"]

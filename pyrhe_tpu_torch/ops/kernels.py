@@ -12,15 +12,18 @@ Decoded columns are in plane order: word k, plane p is column
 once on the host (plane_permutation) and nothing is ever un-permuted:
 downstream quantities are reductions over individuals.
 
-Each of the three products has
+`square=True` decodes g² instead, dosage² in {0, 1, 4} (v + (v & 2) per
+field), for the dominance component of RHE-DOM.
+
+Each of the four products has
   - a CUDA C++ kernel for Hopper (csrc/rhe_kernels.cu), built with nvcc on
     first use and bound through ctypes;
   - a plain PyTorch version with the same contract (decode to a dense
     (m_pad, n_pad) f32 tile, one f32 product, the same epilogue order),
     which the CPU tests use and chip_smoke.py holds the kernel against.
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. `launches` on each wrapper counts
-kernel launches.
+tensors it launches the kernel or raises. `launches[name]` counts kernel
+launches per entry of KERNELS (the square variants apart).
 
 The Pallas wrappers' `fill`, `clean`, `word`, `interpret`, `tm`/`tn`,
 `dtype` and `planewise` arguments are gone: the clean word path never
@@ -107,10 +110,11 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                 os.remove(tmp)
     lib = ctypes.CDLL(_SO)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.rhe_gp.argtypes = [P, P, I, P, L, L, I, P]
-    lib.rhe_ytg.argtypes = [P, P, I, P, L, L, I, P]
+    lib.rhe_gp.argtypes = [P, P, I, I, P, L, L, I, P]
+    lib.rhe_ytg.argtypes = [P, P, I, I, P, L, L, I, P]
     lib.rhe_ytg_acc.argtypes = [P, P, I, P, P, P, P, L, L, I, I, P]
-    for fn in (lib.rhe_gp, lib.rhe_ytg, lib.rhe_ytg_acc):
+    lib.rhe_ytg_acc2.argtypes = [P, P, P, I, P, P, P, L, L, I, I, P]
+    for fn in (lib.rhe_gp, lib.rhe_ytg, lib.rhe_ytg_acc, lib.rhe_ytg_acc2):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -158,40 +162,57 @@ def _launch_device(words: torch.Tensor) -> bool:
 
 
 # ------------------------------------------------------- plain versions
-def decode_words(words: torch.Tensor) -> torch.Tensor:
+def decode_words(words: torch.Tensor, square: bool = False) -> torch.Tensor:
     """(m_pad, n_pad/16) int32 cleaned words -> (m_pad, n_pad) f32
-    dosages in plane order."""
+    dosages (dosage² when square) in plane order."""
     m_pad, nw = words.shape
     w = words.to(torch.int64) & 0xFFFFFFFF
     h = (w >> 1) & 0x55555555
     d = h + (h & w)
     shifts = torch.arange(0, 2 * PLANES, 2, device=words.device)
     planes = (d[:, :, None] >> shifts) & 3                 # (m, nw, 16)
+    if square:
+        planes = planes + (planes & 2)                     # 0,1,2 -> 0,1,4
     return (planes.view(m_pad, nw // (TN // PLANES), TN // PLANES, PLANES)
             .permute(0, 1, 3, 2).reshape(m_pad, nw * PLANES)
             .to(torch.float32))
 
 
-def gp_plain(words: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    return decode_words(words) @ C.float()
+def gp_plain(words: torch.Tensor, C: torch.Tensor,
+             square: bool = False) -> torch.Tensor:
+    return decode_words(words, square) @ C.float()
 
 
-def ytg_plain(words: torch.Tensor, Yt: torch.Tensor) -> torch.Tensor:
-    return Yt.float() @ decode_words(words)
+def ytg_plain(words: torch.Tensor, Yt: torch.Tensor,
+              square: bool = False) -> torch.Tensor:
+    return Yt.float() @ decode_words(words, square)
+
+
+def sum_halves(a, split):
+    """Σ_halves of a stage-2 product whose operand was hi/lo-stacked on
+    rows (split), else the product itself."""
+    if not split:
+        return a
+    Q = a.shape[0] // 2
+    return a[:Q] + a[Q:]
 
 
 def ytg_acc_plain(words, Yt, rank1, scale, mask, tot, split):
-    a = ytg_plain(words, Yt)
-    if split:
-        Q = a.shape[0] // 2
-        a = a[:Q] + a[Q:]
+    a = sum_halves(ytg_plain(words, Yt), split)
     return tot.add_(((a - rank1) * scale) * mask)
 
 
+def ytg_acc2_plain(words, Yt1, Yt2, rank1, mask, tot, split):
+    a1 = sum_halves(ytg_plain(words, Yt1), split)
+    a2 = sum_halves(ytg_plain(words, Yt2, square=True), split)
+    return tot.add_(((a1 + a2) - rank1) * mask)
+
+
 # -------------------------------------------------------------- wrappers
-def gp_matmul(words: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """GP = g @ C with in-kernel decode (stage 1). Replaces
-    pyrhe_tpu/ops/kernels.py gp_matmul / _gp_kernel.
+def gp_matmul(words: torch.Tensor, C: torch.Tensor,
+              square: bool = False) -> torch.Tensor:
+    """GP = g @ C (G2P = g² @ C when square) with in-kernel decode
+    (stage 1). Replaces pyrhe_tpu/ops/kernels.py gp_matmul / _gp_kernel.
 
     words: (m_pad, n_pad/16) int32; C: (n_pad, W) f32, or bf16 hi|lo
     halves side by side when split; returns (m_pad, W) f32.
@@ -211,21 +232,24 @@ def gp_matmul(words: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"C shape {tuple(C.shape)} does not match words "
                          f"{tuple(words.shape)}")
     if not _launch_device(words):
-        return gp_plain(words, C)
+        return gp_plain(words, C, square)
     lib = build()
     W = C.shape[1]
     out = torch.empty((m_pad, W), dtype=torch.float32, device=words.device)
     with torch.cuda.device(words.device):
         _check(lib.rhe_gp(words.data_ptr(), C.data_ptr(),
-                          int(C.dtype == torch.bfloat16), out.data_ptr(),
-                          m_pad, nw, W, _stream(words)), "gp_matmul")
-    gp_matmul.launches += 1
+                          int(C.dtype == torch.bfloat16), int(square),
+                          out.data_ptr(), m_pad, nw, W, _stream(words)),
+               "gp_matmul")
+    launches["gp_matmul_square" if square else "gp_matmul"] += 1
     return out
 
 
-def ytg_matmul(words: torch.Tensor, Yt: torch.Tensor) -> torch.Tensor:
-    """XXG^T = Yt @ g with in-kernel decode (transposed stage 2). Replaces
-    pyrhe_tpu/ops/kernels.py ytg_matmul / _ytg_kernel.
+def ytg_matmul(words: torch.Tensor, Yt: torch.Tensor,
+               square: bool = False) -> torch.Tensor:
+    """XXG^T = Yt @ g (Yt @ g² when square) with in-kernel decode
+    (transposed stage 2). Replaces pyrhe_tpu/ops/kernels.py ytg_matmul /
+    _ytg_kernel.
 
     words: (m_pad, n_pad/16) int32; Yt: (Qr, m_pad) f32, or bf16 hi/lo
     halves stacked on rows when split; returns (Qr, n_pad) f32 in plane
@@ -238,7 +262,7 @@ def ytg_matmul(words: torch.Tensor, Yt: torch.Tensor) -> torch.Tensor:
     decodes one word per SNP row and spends it on 8 rows x 4 planes of
     FMAs, reading its 8 Yt values as two broadcast 16-byte loads from a
     transposed shared-memory tile. The main loop is shared with
-    ytg_acc_matmul, so the two agree bitwise."""
+    ytg_acc_matmul and ytg_acc2_matmul, so they agree bitwise."""
     _check_words(words)
     _check_operand(Yt, "Yt", words)
     m_pad, nw = words.shape
@@ -246,16 +270,17 @@ def ytg_matmul(words: torch.Tensor, Yt: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"Yt shape {tuple(Yt.shape)} does not match words "
                          f"{tuple(words.shape)}")
     if not _launch_device(words):
-        return ytg_plain(words, Yt)
+        return ytg_plain(words, Yt, square)
     lib = build()
     Qr = Yt.shape[0]
     out = torch.empty((Qr, nw * PLANES), dtype=torch.float32,
                       device=words.device)
     with torch.cuda.device(words.device):
         _check(lib.rhe_ytg(words.data_ptr(), Yt.data_ptr(),
-                           int(Yt.dtype == torch.bfloat16), out.data_ptr(),
-                           m_pad, nw, Qr, _stream(words)), "ytg_matmul")
-    ytg_matmul.launches += 1
+                           int(Yt.dtype == torch.bfloat16), int(square),
+                           out.data_ptr(), m_pad, nw, Qr, _stream(words)),
+               "ytg_matmul")
+    launches["ytg_matmul_square" if square else "ytg_matmul"] += 1
     return out
 
 
@@ -306,15 +331,68 @@ def ytg_acc_matmul(words: torch.Tensor, Yt: torch.Tensor,
                                mask.data_ptr(), tot.data_ptr(), m_pad, nw,
                                Q, int(split), _stream(words)),
                "ytg_acc_matmul")
-    ytg_acc_matmul.launches += 1
+    launches["ytg_acc_matmul"] += 1
     return tot
 
 
-KERNELS = (gp_matmul, ytg_matmul, ytg_acc_matmul)
-for _fn in KERNELS:
-    _fn.launches = 0
+def ytg_acc2_matmul(words: torch.Tensor, Yt1: torch.Tensor,
+                    Yt2: torch.Tensor, rank1: torch.Tensor,
+                    mask: torch.Tensor, tot: torch.Tensor, *,
+                    split: bool) -> torch.Tensor:
+    """tot <- tot + mask ⊙ ((Σ_halves Yt1 @ g + Σ_halves Yt2 @ g²) − rank1),
+    updated in place and returned: the dominance component's aliased stage
+    2. Replaces pyrhe_tpu/ops/kernels.py ytg_acc2_matmul /
+    _ytg_acc2_kernel.
+
+    Yt1, Yt2: (2Q, m_pad) hi/lo-stacked when split else (Q, m_pad), of one
+    dtype; rank1: (Q, 1) f32; mask: (1, n_pad) f32; tot: (Q, n_pad) f32.
+
+    Bound on the H100: as ytg_acc_matmul with twice the FMAs per decoded
+    word. Design: one launch of the ytg_acc tile reads and decodes each
+    word once and feeds two accumulator sets (Yt1·g and Yt2·g², Yt tiles
+    staged side by side in shared memory), each the same FMA chain over m
+    as the standalone ytg_matmul / square ytg_matmul launch for its row;
+    the epilogue rounds ((hi1 + lo1) + (hi2 + lo2)) − rank1, × mask, then
+    tot + step by step, so the result is bitwise equal to two ytg_matmul
+    calls followed by the materializing path's tensor ops."""
+    _check_words(words)
+    _check_operand(Yt1, "Yt1", words)
+    _check_operand(Yt2, "Yt2", words, dtypes=(Yt1.dtype,))
+    for name, t in (("rank1", rank1), ("mask", mask), ("tot", tot)):
+        _check_operand(t, name, words, dtypes=(torch.float32,))
+    m_pad, nw = words.shape
+    n_pad = nw * PLANES
+    Qr = Yt1.shape[0]
+    Q = Qr // 2 if split else Qr
+    if (Yt1.dim() != 2 or Yt1.shape[1] != m_pad or Yt2.shape != Yt1.shape
+            or (split and Qr % 2) or rank1.shape != (Q, 1)
+            or mask.shape != (1, n_pad) or tot.shape != (Q, n_pad)):
+        raise ValueError(
+            f"ytg_acc2_matmul shapes: words {tuple(words.shape)}, Yt1 "
+            f"{tuple(Yt1.shape)}, Yt2 {tuple(Yt2.shape)}, rank1 "
+            f"{tuple(rank1.shape)}, mask {tuple(mask.shape)}, tot "
+            f"{tuple(tot.shape)}, split={split}")
+    if not _launch_device(words):
+        return ytg_acc2_plain(words, Yt1, Yt2, rank1, mask, tot, split)
+    lib = build()
+    with torch.cuda.device(words.device):
+        _check(lib.rhe_ytg_acc2(words.data_ptr(), Yt1.data_ptr(),
+                                Yt2.data_ptr(),
+                                int(Yt1.dtype == torch.bfloat16),
+                                rank1.data_ptr(), mask.data_ptr(),
+                                tot.data_ptr(), m_pad, nw, Q, int(split),
+                                _stream(words)),
+               "ytg_acc2_matmul")
+    launches["ytg_acc2_matmul"] += 1
+    return tot
+
+
+# Every kernel variant, as counted in `launches`.
+KERNELS = ("gp_matmul", "gp_matmul_square", "ytg_matmul",
+           "ytg_matmul_square", "ytg_acc_matmul", "ytg_acc2_matmul")
+launches = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+    for name in KERNELS:
+        launches[name] = 0

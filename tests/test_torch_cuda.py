@@ -60,13 +60,18 @@ def test_cuda_kernels_match_plain(cuda_device, split, m, n, W, Q):
     C = torch.randn(n_pad, W, device=cuda_device, generator=gen)
     Yt = torch.randn(Q, m_pad, device=cuda_device, generator=gen)
     Yt[:, m:] = 0.0
+    Yt2 = torch.randn(Q, m_pad, device=cuda_device, generator=gen)
+    Yt2[:, m:] = 0.0
     if split:
         C, Yop = _hilo(C, 1).contiguous(), _hilo(Yt, 0).contiguous()
+        Yop2 = _hilo(Yt2, 0).contiguous()
     else:
-        Yop = Yt
-    before = [fn.launches for fn in tk.KERNELS]
-    assert_close(tk.gp_matmul(w, C), tk.gp_plain(w, C))
-    assert_close(tk.ytg_matmul(w, Yop), tk.ytg_plain(w, Yop))
+        Yop, Yop2 = Yt, Yt2
+    before = dict(tk.launches)
+    for square in (False, True):
+        assert_close(tk.gp_matmul(w, C, square), tk.gp_plain(w, C, square))
+        assert_close(tk.ytg_matmul(w, Yop, square),
+                     tk.ytg_plain(w, Yop, square))
 
     rank1 = torch.randn(Q, 1, device=cuda_device, generator=gen)
     mask = torch.tensor((perm < n)[None, :], dtype=torch.float32,
@@ -82,7 +87,18 @@ def test_cuda_kernels_match_plain(cuda_device, split, m, n, W, Q):
         assert torch.equal(got, tot0 + ((a - rank1) * scale) * mask)
         assert_close(got, tk.ytg_acc_plain(w, Yop, rank1, scale, mask,
                                            tot0.clone(), split))
-    assert [fn.launches - b for fn, b in zip(tk.KERNELS, before)] == [1, 3, 2]
+
+    tot0 = torch.randn(Q, n_pad, device=cuda_device, generator=gen)
+    got = tk.ytg_acc2_matmul(w, Yop, Yop2, rank1, mask, tot0.clone(),
+                             split=split)
+    a1 = tk.sum_halves(tk.ytg_matmul(w, Yop), split)
+    a2 = tk.sum_halves(tk.ytg_matmul(w, Yop2, square=True), split)
+    assert torch.equal(got, tot0 + ((a1 + a2) - rank1) * mask)
+    assert_close(got, tk.ytg_acc2_plain(w, Yop, Yop2, rank1, mask,
+                                        tot0.clone(), split))
+    # gp, gp square, ytg, ytg square, ytg_acc, ytg_acc2 (tk.KERNELS order)
+    assert [tk.launches[k] - before[k] for k in tk.KERNELS] == [
+        1, 1, 4, 2, 2, 1]
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +115,8 @@ def dataset(tmp_path_factory):
 
 
 @pytest.mark.cuda
-def test_cuda_engine_matches_cpu_and_streaming(cuda_device, dataset):
+@pytest.mark.parametrize("model", ["rhe", "rhe_dom"])
+def test_cuda_engine_matches_cpu_and_streaming(cuda_device, dataset, model):
     from pyrhe_tpu_torch.core.data import load_dataset
     from pyrhe_tpu_torch.core.engine import Engine, ModelSpec, RunConfig
 
@@ -109,7 +126,7 @@ def test_cuda_engine_matches_cpu_and_streaming(cuda_device, dataset):
         data = load_dataset(prefix, annot_file=annot,
                             pheno_file=prefix + ".pheno", cov_file=cov,
                             num_random_vec=6, seed=7)
-        eng = Engine(data, ModelSpec.build("rhe"),
+        eng = Engine(data, ModelSpec.build(model),
                      RunConfig(num_random_vec=6, num_jack=6, seed=7,
                                device=device, streaming=streaming))
         eng.run_precompute_and_assemble()

@@ -161,7 +161,8 @@ def test_port_imports_neither_jax_nor_pandas():
         "pyrhe_tpu_torch.core.solver", "pyrhe_tpu_torch.core.normal_eq",
         "pyrhe_tpu_torch.core.engine", "pyrhe_tpu_torch.ops.kernels",
         "pyrhe_tpu_torch.ops.moments", "pyrhe_tpu_torch.models.base",
-        "pyrhe_tpu_torch.models.rhe",
+        "pyrhe_tpu_torch.models.rhe", "pyrhe_tpu_torch.models.rhe_dom",
+        "pyrhe_tpu_torch.profile_run", "pyrhe_tpu_torch.cohort",
     ]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -200,21 +201,27 @@ def test_cpu_wrappers_never_touch_the_build(monkeypatch):
     monkeypatch.setattr(kernels, "build", no_build)
     monkeypatch.setattr(kernels, "_lib", None)
     words = torch.zeros((32, 128), dtype=torch.int32)
-    before = [fn.launches for fn in kernels.KERNELS]
-    kernels.gp_matmul(words, torch.ones((2048, 3)))
-    kernels.ytg_matmul(words, torch.ones((4, 32), dtype=torch.bfloat16))
+    before = dict(kernels.launches)
+    for square in (False, True):
+        kernels.gp_matmul(words, torch.ones((2048, 3)), square)
+        kernels.ytg_matmul(words, torch.ones((4, 32), dtype=torch.bfloat16),
+                           square)
     kernels.ytg_acc_matmul(
         words, torch.ones((4, 32)), torch.zeros((2, 1)),
         torch.ones((1, 2048)), torch.ones((1, 2048)),
         torch.zeros((2, 2048)), split=True)
-    assert [fn.launches for fn in kernels.KERNELS] == before
+    kernels.ytg_acc2_matmul(
+        words, torch.ones((4, 32)), torch.ones((4, 32)), torch.zeros((2, 1)),
+        torch.ones((1, 2048)), torch.zeros((2, 2048)), split=True)
+    assert kernels.launches == before
+    assert set(kernels.launches) == set(kernels.KERNELS)
     with pytest.raises(ValueError, match="no kernel"):
         kernels.gp_matmul(words.to("meta"), torch.ones((2048, 3),
                                                        device="meta"))
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "rhe_dom"], ["--model", "genie"], ["--dtype", "float64"],
+    ["--model", "genie"], ["--dtype", "float64"],
     ["--dtype", "bfloat16"], ["--trace"], ["--checkpoint_dir", "ck"],
     ["--cache_blocks", "0"], ["--profile_dir", "prof"],
     ["--host_cache_gb", "2"],

@@ -1,9 +1,10 @@
-"""PyTorch port, ops/kernels.py: the plain versions of gp, ytg and ytg_acc
-against the JAX package's Pallas kernels (interpret mode, f32, clean int32
-words), the split2 forms against a float64 dense product, ytg_acc against
-ytg plus the transform (bitwise), and the shared layout helpers. The CUDA
-kernels themselves are checked against these plain versions on the card
-(chip_smoke.py and tests/test_torch_cuda.py)."""
+"""PyTorch port, ops/kernels.py: the plain versions of gp, ytg (g and g²),
+ytg_acc and ytg_acc2 against the JAX package's Pallas kernels (interpret
+mode, f32, clean int32 words), the split2 forms against a float64 dense
+product, ytg_acc / ytg_acc2 against ytg plus the transform (bitwise), and
+the shared layout helpers. The CUDA kernels themselves are checked against
+these plain versions on the card (chip_smoke.py and
+tests/test_torch_cuda.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,6 +113,83 @@ def test_ytg_acc_plain_matches_pallas(split):
 
 
 @pytest.mark.parametrize("kernel", ["gp", "ytg"])
+def test_square_plain_matches_pallas(kernel):
+    """square=True (dosage², RHE-DOM): the decode against the dense g², and
+    each product against the Pallas kernel's square variant."""
+    words, g, perm, m, n, m_pad, n_pad = make_block(seed=12)
+    rng = np.random.default_rng(13)
+    w = torch.from_numpy(words)
+    dense = np.zeros((m_pad, n_pad))
+    dense[:m, :n] = g * g
+    np.testing.assert_array_equal(tk.decode_words(w, square=True).numpy(),
+                                  dense[:, perm])
+    fill = jnp.zeros((m_pad, 1))
+    if kernel == "gp":
+        C = rng.normal(size=(n_pad, 21)).astype(np.float32)
+        ref = jk.gp_matmul(jnp.asarray(words), fill, jnp.asarray(C),
+                           square=True, **jax_kw())
+        got = tk.gp_matmul(w, torch.from_numpy(C), square=True)
+    else:
+        Yt = rng.normal(size=(24, m_pad)).astype(np.float32)
+        Yt[:, m:] = 0.0
+        ref = jk.ytg_matmul(jnp.asarray(words), fill, jnp.asarray(Yt),
+                            square=True, **jax_kw())
+        got = tk.ytg_matmul(w, torch.from_numpy(Yt), square=True)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert_close(got.numpy(), ref)
+
+
+def _acc2_operands(seed, Q, split, m, m_pad, n_pad):
+    rng = np.random.default_rng(seed)
+    Qr = 2 * Q if split else Q
+    Yt1, Yt2 = (rng.normal(size=(Qr, m_pad)).astype(np.float32)
+                for _ in range(2))
+    Yt1[:, m:] = Yt2[:, m:] = 0.0
+    rank1 = rng.normal(size=(Q, 1)).astype(np.float32)
+    tot = rng.normal(size=(Q, n_pad)).astype(np.float32)
+    return Yt1, Yt2, rank1, tot
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_ytg_acc2_plain_matches_pallas(split):
+    words, g, perm, m, n, m_pad, n_pad = make_block(seed=14)
+    Q = 9
+    Yt1, Yt2, rank1, tot = _acc2_operands(15, Q, split, m, m_pad, n_pad)
+    mask = (perm < n).astype(np.float32)[None, :]
+    ref = jk.ytg_acc2_matmul(
+        jnp.asarray(words), jnp.zeros((m_pad, 1)), jnp.asarray(Yt1),
+        jnp.asarray(Yt2), jnp.asarray(rank1), jnp.asarray(mask),
+        jnp.asarray(tot), split=split, **jax_kw())
+    t = torch.from_numpy(tot.copy())
+    got = tk.ytg_acc2_matmul(torch.from_numpy(words), torch.from_numpy(Yt1),
+                             torch.from_numpy(Yt2), torch.from_numpy(rank1),
+                             torch.from_numpy(mask), t, split=split)
+    assert got is t                              # updated in place
+    assert_close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_ytg_acc2_equals_two_ytg_plus_transform(split):
+    """The dominance aliased-totals contract (tests/test_kernels.py
+    test_ytg_acc2_matmul): bitwise equal to ytg over g and square ytg over
+    g², each summed over its hi/lo halves, then (XXG + XXG2) − rank1,
+    × mask, tot +."""
+    words, g, perm, m, n, m_pad, n_pad = make_block(seed=16)
+    Q = 10
+    Yt1, Yt2, rank1, tot0 = (torch.from_numpy(x) for x in _acc2_operands(
+        17, Q, False, m, m_pad, n_pad))
+    w = torch.from_numpy(words)
+    Y1, Y2 = ((_hilo(Yt1, 0).contiguous(), _hilo(Yt2, 0).contiguous())
+              if split else (Yt1, Yt2))
+    mask = torch.tensor((perm < n)[None, :], dtype=torch.float32)
+    got = tk.ytg_acc2_matmul(w, Y1, Y2, rank1, mask, tot0.clone(),
+                             split=split)
+    a1 = tk.sum_halves(tk.ytg_matmul(w, Y1), split)
+    a2 = tk.sum_halves(tk.ytg_matmul(w, Y2, square=True), split)
+    assert torch.equal(got, tot0 + ((a1 + a2) - rank1) * mask)
+
+
+@pytest.mark.parametrize("kernel", ["gp", "ytg"])
 def test_split2_matches_dense_float64(kernel):
     """bf16 hi/lo halves of the probe side (the card's mode), summed after
     the product: within the split2 envelope of a float64 dense product
@@ -162,7 +240,7 @@ def test_ytg_acc_equals_ytg_plus_transform(split):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "rows", "contig",
-                                 "acc_shape"])
+                                 "acc_shape", "acc2_shape", "acc2_dtype"])
 def test_wrappers_check_their_contract(bad):
     w = torch.zeros((32, 128), dtype=torch.int32)
     C = torch.zeros((2048, 4))
@@ -176,7 +254,16 @@ def test_wrappers_check_their_contract(bad):
                           torch.zeros((4, 48)))
         elif bad == "contig":
             tk.ytg_matmul(w, torch.zeros((32, 4)).T)
-        else:
+        elif bad == "acc_shape":
             tk.ytg_acc_matmul(w, torch.zeros((4, 32)), torch.zeros((4, 1)),
                               torch.ones((1, 2048)), torch.ones((1, 2048)),
                               torch.zeros((4, 2048)), split=True)
+        elif bad == "acc2_shape":            # Yt2 rows differ from Yt1's
+            tk.ytg_acc2_matmul(w, torch.zeros((4, 32)), torch.zeros((2, 32)),
+                               torch.zeros((2, 1)), torch.ones((1, 2048)),
+                               torch.zeros((2, 2048)), split=True)
+        else:                                # Yt2 dtype differs from Yt1's
+            tk.ytg_acc2_matmul(w, torch.zeros((4, 32)),
+                               torch.zeros((4, 32), dtype=torch.bfloat16),
+                               torch.zeros((4, 1)), torch.ones((1, 2048)),
+                               torch.zeros((4, 2048)), split=False)

@@ -1,7 +1,7 @@
 """PyTorch port, ops/moments.py: the standard and aliased (acc) block
 cores and the acc scan against the JAX package's (Pallas in interpret mode,
-kernel dtype f32), on the same numpy-seeded inputs, and the port's own
-acc == standard bit-identity."""
+kernel dtype f32), on the same numpy-seeded inputs, for additive, GxE and
+dominance components, and the port's own acc == standard bit-identity."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -63,7 +63,8 @@ def assert_close(got, ref):
                                atol=RTOL * np.abs(ref).max())
 
 
-COMPONENTS = [(("add", None),), (("add", None), ("add", 0))]
+COMPONENTS = [(("add", None),), (("add", None), ("add", 0)),
+              (("add", None), ("dom", None))]
 
 
 @pytest.mark.parametrize("components", COMPONENTS)
@@ -86,7 +87,16 @@ def test_block_stats_core_matches_jax(components, cov):
 
 @pytest.mark.parametrize("components", COMPONENTS)
 def test_block_stats_acc_core_matches_jax(components):
-    a, n_indiv, b2 = make_inputs(2)
+    _check_acc_core_matches_jax(components, cov=True)
+
+
+@pytest.mark.parametrize("components", COMPONENTS)
+def test_block_stats_acc_core_no_cov_matches_jax(components):
+    _check_acc_core_matches_jax(components, cov=False)
+
+
+def _check_acc_core_matches_jax(components, cov):
+    a, n_indiv, b2 = make_inputs(2, cov=cov)
     rng = np.random.default_rng(3)
     n_pad = a["P"].shape[0]
     tots = [rng.normal(size=(K * b2, n_pad)).astype(np.float32)
@@ -110,12 +120,23 @@ def test_block_stats_acc_core_matches_jax(components):
 def test_acc_scan_equals_standard_core_bitwise(split):
     """Streaming pass 1 (aliased totals) == cached pass 1 (standard core +
     tensor adds), bit for bit, over two blocks of different heights."""
+    _check_acc_scan_equals_standard_core(split, (("add", None), ("add", 0)))
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_dom_acc_scan_equals_standard_core_bitwise(split):
+    """The same for RHE-DOM: the dominance totals ride ytg_acc2_matmul in
+    the scan and two ytg_matmul calls (g, g²) in the standard core."""
+    _check_acc_scan_equals_standard_core(split, (("add", None),
+                                                 ("dom", None)))
+
+
+def _check_acc_scan_equals_standard_core(split, comps):
     blocks = []
     for seed, m in ((4, 300), (5, 160)):
         a, n_indiv, b2 = make_inputs(seed, m=m)
         w, annot, P, env, mask = as_torch(a)
         blocks.append((w, annot))
-    comps = (("add", None), ("add", 0))
     kw = dict(n_indiv=n_indiv, b2=b2, split=split, components=comps)
     E, n_pad = len(comps) * K, P.shape[0]
     totX = torch.zeros((E, b2, n_pad))
@@ -131,10 +152,17 @@ def test_acc_scan_equals_standard_core_bitwise(split):
 
 
 def test_acc_scan_matches_jax():
+    _check_acc_scan_matches_jax((("add", None),))
+
+
+def test_dom_acc_scan_matches_jax():
+    _check_acc_scan_matches_jax((("add", None), ("dom", None)))
+
+
+def _check_acc_scan_matches_jax(comps):
     a, n_indiv, b2 = make_inputs(6)
     b, _, _ = make_inputs(7)
-    comps = (("add", None),)
-    E, n_pad = K, a["P"].shape[0]
+    E, n_pad = len(comps) * K, a["P"].shape[0]
     stack = lambda k: jnp.asarray(np.stack([a[k], b[k]]))
     (X0, y0) = jm.acc_scan_stats(
         (stack("words"), jnp.zeros((2, a["words"].shape[0])),
@@ -154,9 +182,20 @@ def test_acc_scan_matches_jax():
 
 
 def test_dominance_components_raise():
+    """Components no epilogue handles fail loudly in both cores (the
+    reference's guard, pyrhe_tpu/ops/moments.py block_stats_pallas_acc_core):
+    an env-scaled dominance component and an unknown kind."""
     a, n_indiv, b2 = make_inputs(8)
     w, annot, P, env, mask = as_torch(a)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.block_stats_pallas_core(
-            w, annot, P, env, mask, n_indiv=n_indiv,
-            components=(("add", None), ("dom", None)), b2=b2, split=False)
+    n_pad = P.shape[0]
+    for comps in ((("add", None), ("dom", 0)), (("add", None), ("gxe", 0)),
+                  (("Add", None),)):
+        with pytest.raises(ValueError, match="unsupported component"):
+            tm.block_stats_pallas_core(
+                w, annot, P, env, mask, n_indiv=n_indiv, components=comps,
+                b2=b2, split=False)
+        with pytest.raises(ValueError, match="unsupported component"):
+            tm.block_stats_pallas_acc_core(
+                w, annot, P, env, mask,
+                [torch.zeros((K * b2, n_pad)) for _ in comps],
+                n_indiv=n_indiv, components=comps, b2=b2, split=False)
