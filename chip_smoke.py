@@ -16,7 +16,16 @@ non-zero without printing a result:
    22 / 44 split, stage-2 rows 320 split: K = 8 bins x b2 = 20 probe
    columns of one component), split and unsplit; ytg_acc must equal ytg
    plus the tensor transform bitwise, ytg_acc2 two ytg calls (g, g²) plus
-   the transform; median times of both;
+   the transform; gp must repeat bitwise, and its error against a float64
+   product is printed beside the plain f32 product's. Median times of the
+   kernel, its plain version and the library yardstick (torch.matmul on
+   the tile decoded beforehand, f32 operands, TF32 off: the product alone
+   for ytg_acc, both products for ytg_acc2), and each kernel's bound: the
+   larger of its bytes (inputs read once, outputs written once) over
+   3.35 TB/s and its flops over the peak for the operand type (989 TF/s
+   bf16 on the tensor cores, 67 TF/s f32), H100 SXM at 700 W. gp is timed
+   again on a C built as the main path builds it (mask column + probes,
+   ops/moments._stage1_cols);
 4. the two main paths at a biobank cohort's size, on one synthesized
    cohort (pyrhe_tpu_torch/cohort.py, which profile_run shares):
    N = 100,000 individuals x M = 100,000 SNPs (a 2.5 GB .bed), 8 bins,
@@ -62,6 +71,9 @@ REFERENCE_RUN = {
     "h2_g0": (0.19378023613299408, 0.028743496038605126),
 }
 SPLIT2_RTOL = 3e-4               # tests/test_engine_vs_oracle.py envelope
+# Published H100 SXM peaks at 700 W (bytes/s, flop/s by operand type).
+HBM_BPS, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+SPIN_CYCLES = 4_000_000          # ~2 ms of the card's clock
 REPLACES = {
     "gp_matmul": "pyrhe_tpu/ops/kernels.py:476",
     "gp_matmul_square": "pyrhe_tpu/ops/kernels.py:476",
@@ -101,11 +113,19 @@ def phase_build():
 
 
 def _median_ms(fn, reps: int = 20) -> float:
+    """Median device time of one call of fn (CUDA events around it). Before
+    each call a 128 MB write evicts the 50 MB L2 (the main path's other
+    kernels leave it cold) and the card spins ~2 ms (torch.cuda._sleep)
+    while the host enqueues the call, so the events time the device work
+    and not the Python launch overhead."""
     import torch
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -138,15 +158,31 @@ def _close(name, got, ref):
     return err
 
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _bound(nbytes, flops, dtype):
+    """(bound ms, what sets it): the larger of nbytes over the memory rate
+    and flops over the peak for the operand dtype."""
+    import torch
+    t_bytes = nbytes / HBM_BPS
+    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def phase_kernels():
     import torch
     from pyrhe_tpu_torch.ops import kernels as K
-    from pyrhe_tpu_torch.ops.moments import _hilo
+    from pyrhe_tpu_torch.ops.moments import _hilo, _stage1_cols
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     words = _random_words(gen, M_PAD, N_PAD, 1000, dev)
+    # the yardstick's operands, decoded beforehand (not timed)
+    dense = {sq: K.decode_words(words, sq) for sq in (False, True)}
     C = torch.randn(N_PAD, W, device=dev, generator=gen)
     Yt = torch.randn(QR, M_PAD, device=dev, generator=gen)
     Yt[:, 1000:] = 0.0
@@ -154,26 +190,67 @@ def phase_kernels():
     Yh = _hilo(Yt[:Q], 0).contiguous()                   # (320, m) bf16
     res = {}
 
-    def record(name, split, err, ms, plain_ms):
-        """Errors over every case; times of the split (bf16) case, which
-        is what the main path runs on the card."""
+    def record(name, split, err, ms, plain_ms, library_ms, nbytes, flops,
+               dtype, **extra):
+        """Errors over every case; times and bound of the split (bf16)
+        case, which is what the main path runs on the card."""
         r = res.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        bound_ms, by = _bound(nbytes, flops, dtype)
         if split:
-            r.update(ms=ms, plain_ms=plain_ms)
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound_ms, bound_by=by,
+                     bound_share=bound_ms / ms, **extra)
+        return (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({by}, "
+                f"{100 * bound_ms / ms:.2f} % of it)")
 
+    words_b = _nbytes(words)
     for square in (False, True):
         name = "gp_matmul_square" if square else "gp_matmul"
         for split, Cop in ((False, C), (True, _hilo(C, 1).contiguous())):
             got = K.gp_matmul(words, Cop, square)
+            if not torch.equal(got, K.gp_matmul(words, Cop, square)):
+                raise AssertionError(f"{name} split={split}: two launches "
+                                     "differ (must be deterministic)")
             ref = K.gp_plain(words, Cop, square)
             err = _close(f"{name} split={split}", got, ref)
+            # against float64: the kernel and the plain f32 product
+            r64 = dense[square].double() @ C.double()
+            e64 = {}
+            for who, x in (("kernel", got), ("plain", ref)):
+                x = x[:, :W] + x[:, W:] if split else x
+                e64[who] = (x.double() - r64).abs().max().item()
+            rel = r64.abs().max().item()
             ms = _median_ms(lambda: K.gp_matmul(words, Cop, square))
             pms = _median_ms(lambda: K.gp_plain(words, Cop, square), reps=5)
-            record(name, split, err, ms, pms)
+            Cf = Cop.float()
+            lms = _median_ms(lambda: dense[square] @ Cf, reps=10)
+            line = record(name, split, err, ms, pms, lms,
+                          words_b + _nbytes(Cop, got),
+                          2 * M_PAD * N_PAD * Cop.shape[1], Cop.dtype,
+                          err_vs_f64=e64["kernel"])
             log(f"[3 kernels] {name} split={split} C {tuple(Cop.shape)} "
-                f"{Cop.dtype}: max abs err {err:.3e}; kernel {ms:.4f} ms, "
-                f"plain {pms:.4f} ms")
+                f"{Cop.dtype}: max abs err vs plain {err:.3e}; vs float64 "
+                f"kernel {e64['kernel']:.3e}, plain f32 {e64['plain']:.3e} "
+                f"(max |ref| {rel:.3e}); bitwise repeatable; {line}")
+
+    # gp on the main path's C: [valid mask | Z | Uzb | y] (1 + 21 columns)
+    perm = torch.as_tensor(K.plane_permutation(N_PAD), device=dev)
+    mask_col = (perm < 100_000).float()[:, None]
+    P = torch.randn(N_PAD, 21, device=dev, generator=gen) * mask_col
+    _, C_main = _stage1_cols((("add", None),), P, None, mask_col)
+    C_main = _hilo(C_main, 1).contiguous()
+    for square in (False, True):
+        name = "gp_matmul_square" if square else "gp_matmul"
+        got = K.gp_matmul(words, C_main, square)
+        err = _close(f"{name} main-path C", got,
+                     K.gp_plain(words, C_main, square))
+        ms = _median_ms(lambda: K.gp_matmul(words, C_main, square))
+        res[name]["ms_main_path_c"] = ms
+        log(f"[3 kernels] {name} on the main path's C {tuple(C_main.shape)}"
+            f" {C_main.dtype}: max abs err vs plain {err:.3e}; kernel "
+            f"{ms:.4f} ms")
 
     for square in (False, True):
         name = "ytg_matmul_square" if square else "ytg_matmul"
@@ -183,10 +260,13 @@ def phase_kernels():
             err = _close(f"{name} split={split}", got, ref)
             ms = _median_ms(lambda: K.ytg_matmul(words, Yop, square))
             pms = _median_ms(lambda: K.ytg_plain(words, Yop, square), reps=5)
-            record(name, split, err, ms, pms)
+            Yf = Yop.float()
+            lms = _median_ms(lambda: Yf @ dense[square], reps=10)
+            line = record(name, split, err, ms, pms, lms,
+                          words_b + _nbytes(Yop, got),
+                          2 * Yop.shape[0] * M_PAD * N_PAD, Yop.dtype)
             log(f"[3 kernels] {name} split={split} Yt {tuple(Yop.shape)} "
-                f"{Yop.dtype}: max abs err {err:.3e}; kernel {ms:.4f} ms, "
-                f"plain {pms:.4f} ms")
+                f"{Yop.dtype}: max abs err {err:.3e}; {line}")
 
     mask = (torch.rand(1, N_PAD, device=dev, generator=gen) < 0.9).float()
     for split, Yop in ((False, Yt[:Q].contiguous()), (True, Yh)):
@@ -215,11 +295,14 @@ def phase_kernels():
             words, Yop, rank1, scale, mask, tot, split=split))
         pms = _median_ms(lambda: K.ytg_acc_plain(
             words, Yop, rank1, scale, mask, tot, split), reps=5)
-        record("ytg_acc_matmul", split, err, ms, pms)
+        Yf = Yop.float()
+        lms = _median_ms(lambda: Yf @ dense[False], reps=10)
+        line = record("ytg_acc_matmul", split, err, ms, pms, lms,
+                      words_b + _nbytes(Yop, rank1, scale, mask, tot, tot),
+                      2 * Yop.shape[0] * M_PAD * N_PAD, Yop.dtype)
         log(f"[3 kernels] ytg_acc_matmul split={split} Yt "
             f"{tuple(Yop.shape)} {Yop.dtype}: bitwise == ytg + transform; "
-            f"max abs err vs plain {err:.3e}; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms")
+            f"max abs err vs plain {err:.3e}; {line}")
 
     Yt2 = torch.randn(Q, M_PAD, device=dev, generator=gen)
     Yt2[:, 1000:] = 0.0
@@ -245,12 +328,18 @@ def phase_kernels():
             words, Y1, Y2, rank1, mask, tot, split=split))
         pms = _median_ms(lambda: K.ytg_acc2_plain(
             words, Y1, Y2, rank1, mask, tot, split), reps=5)
-        record("ytg_acc2_matmul", split, err, ms, pms)
+        Y1f, Y2f = Y1.float(), Y2.float()
+        lms = _median_ms(lambda: (Y1f @ dense[False], Y2f @ dense[True]),
+                         reps=10)
+        line = record("ytg_acc2_matmul", split, err, ms, pms, lms,
+                      words_b + _nbytes(Y1, Y2, rank1, mask, tot, tot),
+                      4 * Y1.shape[0] * M_PAD * N_PAD, Y1.dtype)
         log(f"[3 kernels] ytg_acc2_matmul split={split} Yt1, Yt2 "
             f"{tuple(Y1.shape)} {Y1.dtype}: bitwise == two ytg + transform;"
-            f" max abs err vs plain {err:.3e}; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms")
+            f" max abs err vs plain {err:.3e}; {line}")
+    del dense
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -475,9 +564,7 @@ def main():
     kernels = [{
         "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES[name], "launches": launches[name],
-        "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
-        "plain_ms": kres[name]["plain_ms"],
-    } for name in K.KERNELS]
+        **kres[name]} for name in K.KERNELS]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,11 @@
 // (k / 128) * 2048 + p * 128 + k % 128, the 16-plane permutation with
 // period 2048 (ops/kernels.plane_permutation).
 //
-// All sums are f32 FMA chains in a fixed order with no atomics, so every
-// launch is deterministic, and rhe_ytg / rhe_ytg_acc / rhe_ytg_acc2 share
-// one main loop: their products are bitwise equal element by element.
+// No kernel uses atomics and every sum runs in a fixed order, so every
+// launch is deterministic. rhe_gp sums over individuals on the bf16 tensor
+// cores (f32 accumulators) in a split-K grid with an ordered reduction;
+// rhe_ytg / rhe_ytg_acc / rhe_ytg_acc2 are f32 FMA chains that share one
+// main loop: their products are bitwise equal element by element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,88 +63,384 @@ __device__ __forceinline__ float dose_f32(uint32_t d, int p, bool square) {
 }
 
 // ------------------------------------------------------------------ gp
-// out (m_pad, wc) = g (m_pad, n_pad) @ C (n_pad, wc). One block per tile
-// of 16 SNP rows x 24 columns (g² @ C when Square); each block loops over
-// all of N. A warp owns
-// 4 rows x 12 columns; its 32 lanes take 32 consecutive words and keep
-// 4 x 12 f32 accumulators in registers, reduced over the lanes by a fixed
-// shuffle tree at the end. C rows for the 32 words x 8 planes in flight
-// are staged through shared memory (odd row stride: lane-strided reads
-// hit 32 distinct banks).
-constexpr int GP_THREADS = 256;
-constexpr int GP_RPT = 4;                 // rows per warp
-constexpr int GP_ROWS = 4 * GP_RPT;       // rows per block (4 row groups)
-constexpr int GP_CPT = 12;                // columns per warp
-constexpr int GP_COLS = 2 * GP_CPT;       // columns per block (2 groups)
-constexpr int GP_WORDS = 32;              // words per step, one per lane
-constexpr int GP_PLANES = 8;              // planes staged per phase
-constexpr int GP_SROW = GP_COLS + 1;
+// out (m_pad, wc) = g (m_pad, n_pad) @ C (n_pad, wc), g² @ C when Square.
+// Replaces pyrhe_tpu/ops/kernels.py:476 gp_matmul / _gp_kernel.
+//
+// Bound: bytes. At one block of the main path (m_pad 1024, n_pad 100352,
+// wc 44 bf16 hi|lo) the words (25.7 MB) and C (8.8 MB) take 10.4 us at
+// 3.35 TB/s; the 9.0 GFLOP take 9.1 us on the bf16 tensor cores.
+//
+// Design: a deterministic split-K over individuals that fills the card.
+// Block (x, y, z) takes GP_ROWS SNP rows, GP_COLS columns and the z-th
+// contiguous range of `per_split` whole plane-permutation periods
+// (ops/kernels.gp_splits: the partition depends on the shapes alone), and
+// writes its partial product to part[z]; gp_reduce then sums the S partials
+// of each output in the order z = 0 .. S-1. No atomics: every launch is
+// deterministic. A block walks its periods one group at a time, 16 words x
+// 16 planes = 256 individuals, where plane p is the 16 consecutive C rows
+// base + p*128 + w0 .. w0+15; the group's words and C rows are staged in
+// shared memory with cp.async, double-buffered, while the previous group is
+// computed. C rows keep their global width (88 bytes at wc = 44): the copy
+// granule is the widest of 16/8/4 bytes that divides the row pitch and the
+// base address, with zero-fill of a ragged last granule (2-byte plain
+// copies for odd bf16 widths); columns past wc are never stored.
+//   bf16 C (split2, the main path): mma.sync m16n8k16 bf16 -> f32 on the
+//     tensor cores. A warp owns 32 rows (two m16 tiles) x all the block's
+//     columns; one k step is one plane of the group. A thread's A fragment
+//     holds words 2t, 2t+1, 2t+8, 2t+9 of rows g and g+8: it decodes the
+//     8 words once per group into pairs of 16-bit halves (PRMT) and per
+//     plane forms each bf16x2 operand with a shift, an AND-OR that makes
+//     bf16 128 + v, and an exact bf16x2 FMA that takes 128 away; dosages
+//     (and their squares) are exact in bf16. B fragments come from the
+//     staged C tile through ldmatrix.trans (row pitch an odd number of
+//     16-byte units: no bank conflicts).
+//   f32 C: the same grid, staging and reduction with an f32 FMA loop on
+//     the CUDA cores (the tensor cores would round f32 C to TF32); each
+//     thread keeps 8 rows x 8 columns.
+constexpr int GP_ROWS = 128;                // SNP rows per block
+constexpr int GP_THREADS = GP_ROWS;         // one warp per 32 rows
+constexpr int GP_COLS = 64;                 // output columns per block
+constexpr int GP_GW = 16;                   // words per group
+constexpr int GP_IND = GP_GW * kPlanes;     // individuals per group
+constexpr int GP_WBYTES = GP_ROWS * GP_GW * 4;   // staged words of a group
+constexpr int GP_STAGES = 2;                // groups in flight (buffers)
 
-template <bool Square, typename T>
-__global__ void __launch_bounds__(GP_THREADS)
-gp_kernel(const uint32_t* __restrict__ words, const T* __restrict__ c,
-          float* __restrict__ out, int64_t nw, int wc) {
-  __shared__ float cs[GP_PLANES * GP_WORDS * GP_SROW];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t row0 = (int64_t)blockIdx.x * GP_ROWS + (warp >> 1) * GP_RPT;
-  const int cb = blockIdx.y * GP_COLS;
-  const int cw = (warp & 1) * GP_CPT;     // warp's first column in the tile
+struct GpShape {
+  int64_t m_pad, nw;
+  int wc;          // columns of C and out
+  int per_split;   // periods per split
+  int wp;          // staged columns: wc rounded up to 16, at most GP_COLS
+  int gran;        // bytes per copy of a C row segment: 16, 8, 4 or 2
+};
 
-  float acc[GP_RPT][GP_CPT];
-#pragma unroll
-  for (int r = 0; r < GP_RPT; ++r)
-#pragma unroll
-    for (int j = 0; j < GP_CPT; ++j) acc[r][j] = 0.0f;
+// C elements per staged row: bf16 rows are an odd number of 16-byte units
+// long (ldmatrix without bank conflicts); f32 rows are read as broadcasts.
+template <typename T>
+__host__ __device__ constexpr int gp_srow(int wp) {
+  return sizeof(T) == 2 ? wp + 8 : wp;
+}
 
-  for (int64_t k0 = 0; k0 < nw; k0 += GP_WORDS) {
-    uint32_t d[GP_RPT];
+template <typename T>
+__host__ __device__ constexpr int gp_stage_bytes(int wp) {
+  return GP_WBYTES + GP_IND * gp_srow<T>(wp) * (int)sizeof(T);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies `n` <= N bytes and zero-fills the rest of the N-byte granule.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "n"(N), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Which granule of which staged C row this thread copies: thread t takes
+// granule t % per_row of rows t / per_row, + step, ... (one division per
+// launch instead of one per copy); threads past the last whole row idle.
+struct GpCopyLane {
+  int r0, step, off, nb;     // first row, row step, byte offset, bytes
+};
+
+__device__ __forceinline__ GpCopyLane gp_copy_lane(int row_bytes, int gran) {
+  const int per_row = (row_bytes + gran - 1) / gran;
+  const int step = GP_THREADS / per_row;
+  const int q = threadIdx.x % per_row;
+  GpCopyLane l;
+  l.r0 = threadIdx.x < step * per_row ? threadIdx.x / per_row : GP_IND;
+  l.step = step;
+  l.off = q * gran;
+  l.nb = min(gran, row_bytes - l.off);
+  return l;
+}
+
+// Stage words [k0, k0 + 16) of the block's rows and the 256 C rows of that
+// group (row p*16 + j of the tile is individual n0 + p*128 + j).
+template <typename T>
+__device__ __forceinline__ void gp_stage(char* buf,
+                                         const uint32_t* __restrict__ words,
+                                         const T* __restrict__ c,
+                                         const GpShape& sh, int64_t row0,
+                                         int cb, const GpCopyLane& cl,
+                                         int64_t k0) {
+  uint32_t* sw = reinterpret_cast<uint32_t*>(buf);
 #pragma unroll
-    for (int r = 0; r < GP_RPT; ++r)
-      d[r] = swar_doses(words[(row0 + r) * nw + k0 + lane]);
-    // column of word k0 + l, plane p: n0 + p * 128 + l
-    const int64_t n0 = (k0 / kTileWords) * kTileN + k0 % kTileWords;
+  for (int e = threadIdx.x; e < GP_ROWS * 4; e += GP_THREADS) {
+    const int r = e >> 2, q = e & 3;
+    if (row0 + r < sh.m_pad)
+      cp_async<16>(sw + r * GP_GW + 4 * q,
+                   words + (row0 + r) * sh.nw + k0 + 4 * q, 16);
+  }
+  char* sc = buf + GP_WBYTES + cl.off;
+  const int pitch = gp_srow<T>(sh.wp) * (int)sizeof(T);
+  const char* cs = reinterpret_cast<const char*>(c + cb) + cl.off;
+  const int64_t n0 = (k0 / kTileWords) * kTileN + k0 % kTileWords;
+  for (int r = cl.r0; r < GP_IND; r += cl.step) {
+    const int64_t n = n0 + (int64_t)(r >> 4) * kTileWords + (r & 15);
+    const char* src = cs + n * sh.wc * (int64_t)sizeof(T);
+    char* dst = sc + r * pitch;
+    if (sh.gran == 16) cp_async<16>(dst, src, cl.nb);
+    else if (sh.gran == 8) cp_async<8>(dst, src, cl.nb);
+    else if (sh.gran == 4) cp_async<4>(dst, src, cl.nb);
+    else *reinterpret_cast<uint16_t*>(dst) =
+        *reinterpret_cast<const uint16_t*>(src);
+  }
+}
+
+// Fields 0-7 (lo) and 8-15 (hi) of two words' SWAR dosages as 16-bit
+// halves: the word with the lower k in the low half, as mma's bf16x2 wants.
+__device__ __forceinline__ void dose_pairs(uint2 w, uint32_t& lo,
+                                           uint32_t& hi) {
+  const uint32_t d0 = swar_doses(w.x), d1 = swar_doses(w.y);
+  lo = __byte_perm(d0, d1, 0x5410);
+  hi = __byte_perm(d0, d1, 0x7632);
+}
+
+// The two 2-bit fields at `shift` of a pair as bf16x2 dosages (squared
+// when Square): (0x4300 | v) is bf16 128 + v, and 1 * x - 128 is exact.
+template <bool Square>
+__device__ __forceinline__ uint32_t dose_bf16x2(uint32_t pair, int shift) {
+  uint32_t x;
+  if (Square) {
+    const uint32_t v = (pair >> shift) & 0x00030003u;
+    x = v + (v & 0x00020002u) + 0x43004300u;         // no carry out of a half
+  } else {                                   // (v & mask) | 128: one LOP3
+    asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
+        : "=r"(x) : "r"(pair >> shift), "r"(0x00030003u), "r"(0x43004300u));
+  }
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(r) : "r"(x), "r"(0x3F803F80u), "r"(0xC300C300u));
+  return r;
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
+                                              uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16 C on the tensor cores: warp w owns rows w*32 .. w*32+31 of the
+// block as two m16 tiles, and the NT n8 tiles of the block's columns (NT
+// is a template parameter so that the plane loop has no branch: the
+// scheduler overlaps one pair's ldmatrix with the other pairs' mma).
+template <bool Square, int NT>
+struct GpMmaTile {
+  static_assert(NT % 2 == 0 && NT * 8 <= GP_COLS, "NT: even, <= 8");
+  float acc[2][NT][4];
+
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int ph = 0; ph < kPlanes / GP_PLANES; ++ph) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < GP_PLANES * GP_WORDS * GP_COLS;
-           e += GP_THREADS) {
-        const int col = e % GP_COLS, rr = e / GP_COLS;
-        const int64_t n = n0 + (int64_t)(ph * GP_PLANES + rr / GP_WORDS)
-                                   * kTileWords + rr % GP_WORDS;
-        cs[rr * GP_SROW + col] =
-            cb + col < wc ? to_f32(c[n * wc + cb + col]) : 0.0f;
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.0f;
+  }
+
+  __device__ __forceinline__ void compute(const char* buf, const GpShape& sh,
+                                          int64_t row0) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (row0 + warp * 32 >= sh.m_pad) return;    // m_pad % 32 == 0
+    const int g = lane >> 2, t = lane & 3;
+    // A register i of m tile mt: 0 (row g, k 2t..2t+1), 1 (row g+8, same
+    // k), 2 (row g, k 2t+8..2t+9), 3 (row g+8, k 2t+8..)
+    uint32_t lo[2][4], hi[2][4];
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(buf)
+                         + (warp * 32 + g) * GP_GW + 2 * t;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t* rw = sw + (mt * 16 + h * 8) * GP_GW;
+        dose_pairs(*reinterpret_cast<const uint2*>(rw), lo[mt][h],
+                   hi[mt][h]);
+        dose_pairs(*reinterpret_cast<const uint2*>(rw + 8), lo[mt][2 + h],
+                   hi[mt][2 + h]);
       }
-      __syncthreads();
+    // ldmatrix x4: lanes 8i..8i+7 address the rows of matrix i = (k half
+    // i & 1, n8 tile i >> 1) of a pair of n8 tiles
+    constexpr int srow = gp_srow<__nv_bfloat16>(NT * 8);
+    const int mi = lane >> 3;
+    const uint32_t b_base = smem_u32(
+        reinterpret_cast<const __nv_bfloat16*>(buf + GP_WBYTES)
+        + ((mi & 1) * 8 + (lane & 7)) * srow + (mi >> 1) * 8);
 #pragma unroll
-      for (int pp = 0; pp < GP_PLANES; ++pp) {
-        const float* cr = cs + (pp * GP_WORDS + lane) * GP_SROW + cw;
-        float cv[GP_CPT];
+    for (int p = 0; p < kPlanes; ++p) {
+      uint32_t a[2][4];
 #pragma unroll
-        for (int j = 0; j < GP_CPT; ++j) cv[j] = cr[j];
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int r = 0; r < GP_RPT; ++r) {
-          const float g = dose_f32(d[r], ph * GP_PLANES + pp, Square);
+        for (int i = 0; i < 4; ++i)
+          a[mt][i] = dose_bf16x2<Square>(p < 8 ? lo[mt][i] : hi[mt][i],
+                                         2 * (p & 7));
+      const uint32_t bp = b_base + p * GP_GW * srow * 2;
 #pragma unroll
-          for (int j = 0; j < GP_CPT; ++j)
-            acc[r][j] = fmaf(g, cv[j], acc[r][j]);
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(bp + j * 16, b0, b1, b2, b3);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][j], a[mt], b0, b1);
+          mma_bf16(acc[mt][j + 1], a[mt], b2, b3);
         }
       }
     }
   }
 
+  // Accumulator i of an n8 tile: row g + 8 * (i >> 1), column 2t + (i & 1).
+  __device__ __forceinline__ void store(float* __restrict__ out,
+                                        const GpShape& sh, int64_t row0,
+                                        int cb) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int r = 0; r < GP_RPT; ++r) {
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < GP_CPT; ++j) {
-      float v = acc[r][j];
+      for (int i = 0; i < 4; ++i) {
+        const int64_t row = row0 + warp * 32 + mt * 16 + (i >> 1) * 8 + g;
+        if (row >= sh.m_pad) continue;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      const int col = cb + cw + j;
-      if (lane == 0 && col < wc) out[(row0 + r) * wc + col] = v;
+        for (int j = 0; j < NT; ++j) {
+          const int col = cb + j * 8 + 2 * t + (i & 1);
+          if (col < sh.wc) out[row * sh.wc + col] = acc[mt][j][i];
+        }
+      }
+  }
+};
+
+// f32 C on the CUDA cores: thread (rg, cg) keeps rows rg*8 .. rg*8+7 x
+// columns cg*8 .. cg*8+7 of the block, one FMA chain per output in
+// (group, word, plane) order.
+template <bool Square>
+struct GpFmaTile {
+  float acc[8][8];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[i][q] = 0.0f;
+  }
+
+  __device__ __forceinline__ void compute(const char* buf, const GpShape& sh,
+                                          int64_t row0) {
+    const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+    if (row0 + rg * 8 >= sh.m_pad || cg * 8 >= sh.wp) return;
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(buf)
+                         + rg * 8 * GP_GW;
+    const float* sc = reinterpret_cast<const float*>(buf + GP_WBYTES)
+                      + cg * 8;
+    for (int j = 0; j < GP_GW; ++j) {
+      uint32_t d[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[i] = swar_doses(sw[i * GP_GW + j]);
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {
+        const float4* cr =
+            reinterpret_cast<const float4*>(sc + (p * GP_GW + j) * sh.wp);
+        const float4 c0 = cr[0], c1 = cr[1];
+        const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float gv = dose_f32(d[i], p, Square);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(gv, cv[q], acc[i][q]);
+        }
+      }
     }
   }
+
+  __device__ __forceinline__ void store(float* __restrict__ out,
+                                        const GpShape& sh, int64_t row0,
+                                        int cb) const {
+    const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t row = row0 + rg * 8 + i;
+      if (row >= sh.m_pad) continue;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int col = cb + cg * 8 + q;
+        if (col < sh.wc) out[row * sh.wc + col] = acc[i][q];
+      }
+    }
+  }
+};
+
+// One block: rows [x * GP_ROWS, +GP_ROWS), columns [y * GP_COLS,
+// +GP_COLS), periods [z * per_split, +per_split) clipped to n_pad; its
+// partial product goes to part[z] (the output itself when S == 1).
+template <class Tile, typename T>
+__global__ void __launch_bounds__(GP_THREADS)
+gp_kernel(const uint32_t* __restrict__ words, const T* __restrict__ c,
+          float* __restrict__ part, GpShape sh) {
+  extern __shared__ __align__(16) char smem[];
+  const int64_t row0 = (int64_t)blockIdx.x * GP_ROWS;
+  const int cb = blockIdx.y * GP_COLS, ncols = min(GP_COLS, sh.wc - cb);
+  const int64_t periods = sh.nw / kTileWords;
+  const int64_t p0 = (int64_t)blockIdx.z * sh.per_split;
+  const int groups = (int)((min(periods, p0 + sh.per_split) - p0)
+                           * (kTileWords / GP_GW));
+  const int64_t k0 = p0 * kTileWords;
+  const int stage = gp_stage_bytes<T>(sh.wp);
+
+  const GpCopyLane cl = gp_copy_lane(ncols * (int)sizeof(T), sh.gran);
+
+  Tile tile;
+  tile.zero();
+#pragma unroll
+  for (int i = 0; i < GP_STAGES - 1; ++i) {
+    if (i < groups)
+      gp_stage(smem + i * stage, words, c, sh, row0, cb, cl,
+               k0 + (int64_t)i * GP_GW);
+    cp_async_commit();
+  }
+  for (int i = 0; i < groups; ++i) {
+    const int next = i + GP_STAGES - 1;
+    if (next < groups)
+      gp_stage(smem + (next % GP_STAGES) * stage, words, c, sh, row0, cb, cl,
+               k0 + (int64_t)next * GP_GW);
+    cp_async_commit();          // empty groups near the end keep the count
+    cp_async_wait<GP_STAGES - 1>();   // group i has landed
+    __syncthreads();
+    tile.compute(smem + (i % GP_STAGES) * stage, sh, row0);
+    __syncthreads();            // its buffer is free for group i + STAGES
+  }
+  tile.store(part + (int64_t)blockIdx.z * sh.m_pad * sh.wc, sh, row0, cb);
+}
+
+// out[i] = part[0][i] + part[1][i] + ... + part[S-1][i], in that order.
+__global__ void gp_reduce(const float* __restrict__ part,
+                          float* __restrict__ out, int splits, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v = part[i];
+#pragma unroll 8
+  for (int s = 1; s < splits; ++s) v = __fadd_rn(v, part[s * n + i]);
+  out[i] = v;
 }
 
 // ----------------------------------------------------------- ytg main loop
@@ -347,17 +645,41 @@ ytg_acc_kernel(const uint32_t* __restrict__ words, const T* __restrict__ yt0,
   }
 }
 
-template <typename T>
-int gp_launch(const uint32_t* w, const void* c, int square, float* out,
-              int64_t m_pad, int64_t nw, int wc, cudaStream_t st) {
-  const dim3 grid((unsigned)(m_pad / GP_ROWS),
-                  (unsigned)((wc + GP_COLS - 1) / GP_COLS));
-  const T* ct = static_cast<const T*>(c);
-  if (square)
-    gp_kernel<true><<<grid, GP_THREADS, 0, st>>>(w, ct, out, nw, wc);
-  else
-    gp_kernel<false><<<grid, GP_THREADS, 0, st>>>(w, ct, out, nw, wc);
+template <class Tile, typename T>
+int gp_launch(const uint32_t* w, const void* c, float* part, float* out,
+              const GpShape& sh, int splits, cudaStream_t st) {
+  const int smem = GP_STAGES * gp_stage_bytes<T>(sh.wp);
+  const cudaError_t e = cudaFuncSetAttribute(
+      gp_kernel<Tile, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((sh.m_pad + GP_ROWS - 1) / GP_ROWS),
+                  (unsigned)((sh.wc + GP_COLS - 1) / GP_COLS),
+                  (unsigned)splits);
+  gp_kernel<Tile, T><<<grid, GP_THREADS, smem, st>>>(
+      w, static_cast<const T*>(c), splits > 1 ? part : out, sh);
+  if (splits > 1) {
+    const int64_t n = sh.m_pad * sh.wc;
+    gp_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, out,
+                                                           splits, n);
+  }
   return (int)cudaGetLastError();
+}
+
+// bf16 C: NT = wp / 8 n8 tiles of mma per block.
+template <bool Square>
+int gp_mma(const uint32_t* w, const void* c, float* part, float* out,
+           const GpShape& sh, int splits, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  switch (sh.wp / 8) {
+    case 2: return gp_launch<GpMmaTile<Square, 2>, T>(w, c, part, out, sh,
+                                                      splits, st);
+    case 4: return gp_launch<GpMmaTile<Square, 4>, T>(w, c, part, out, sh,
+                                                      splits, st);
+    case 6: return gp_launch<GpMmaTile<Square, 6>, T>(w, c, part, out, sh,
+                                                      splits, st);
+    default: return gp_launch<GpMmaTile<Square, 8>, T>(w, c, part, out, sh,
+                                                       splits, st);
+  }
 }
 
 template <typename T>
@@ -395,14 +717,25 @@ extern "C" {
 
 // Shapes are checked by the Python wrappers: m_pad % 32 == 0,
 // nw % 128 == 0, all tensors contiguous on the current device.
+// part: (splits, m_pad, wc) f32 workspace, unused when splits == 1.
 int rhe_gp(const void* words, const void* c, int c_bf16, int square,
-           void* out, int64_t m_pad, int64_t nw, int wc, void* stream) {
+           void* part, void* out, int64_t m_pad, int64_t nw, int wc,
+           int per_split, int splits, void* stream) {
+  const int wp = (wc + 15) / 16 * 16;
+  GpShape sh{m_pad, nw, wc, per_split, wp < GP_COLS ? wp : GP_COLS, 16};
+  const uintptr_t align = reinterpret_cast<uintptr_t>(c)
+                          | (uintptr_t)wc * (c_bf16 ? 2 : 4);
+  while (sh.gran > 2 && align % sh.gran) sh.gran >>= 1;
   const auto* w = static_cast<const uint32_t*>(words);
+  auto* p = static_cast<float*>(part);
   auto* o = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return c_bf16
-      ? gp_launch<__nv_bfloat16>(w, c, square, o, m_pad, nw, wc, st)
-      : gp_launch<float>(w, c, square, o, m_pad, nw, wc, st);
+  if (c_bf16)
+    return square ? gp_mma<true>(w, c, p, o, sh, splits, st)
+                  : gp_mma<false>(w, c, p, o, sh, splits, st);
+  return square ? gp_launch<GpFmaTile<true>, float>(w, c, p, o, sh, splits, st)
+                : gp_launch<GpFmaTile<false>, float>(w, c, p, o, sh, splits,
+                                                     st);
 }
 
 int rhe_ytg(const void* words, const void* yt, int yt_bf16, int square,

@@ -2,9 +2,9 @@
 
 Host layer of the PyTorch port, carried over from pyrhe_tpu/io/bed.py
 (importing that module would import jax through the package root). The
-C++ decoder is NOT duplicated: `_load_native` compiles the reference
-package's `pyrhe_tpu/io/_native/bed_decode.cpp` by file path into the
-port's git-ignored build directory, so the host decoder keeps one source.
+port keeps its own copy of the C++ decoder, `pyrhe_tpu_torch/csrc/
+bed_decode.cpp`; `_load_native` compiles it with g++ on first use into the
+port's git-ignored build directory `pyrhe_tpu_torch/_build/native/`.
 
 Replaces the reference's `bed_reader` dependency (reference base.py:10,100)
 and its post-read 0<->2 allele flip (base.py:347-355): our decoder emits the
@@ -27,8 +27,7 @@ import numpy as np
 
 _MAGIC = bytes([0x6C, 0x1B, 0x01])
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC_PATH = os.path.join(os.path.dirname(_PKG_DIR), "pyrhe_tpu", "io",
-                         "_native", "bed_decode.cpp")
+_SRC_PATH = os.path.join(_PKG_DIR, "csrc", "bed_decode.cpp")
 _NATIVE_DIR = os.path.join(_PKG_DIR, "_build", "native")
 _LUT = np.array([0, 255, 1, 2], dtype=np.uint8)  # 2-bit code -> dosage
 

@@ -30,8 +30,9 @@ The Pallas wrappers' `fill`, `clean`, `word`, `interpret`, `tm`/`tn`,
 reads `fill`, decode is always clean and word-wise, and `planewise` was an
 MXU tiling choice with no counterpart here. The operand dtype (float32, or
 bfloat16 for the split2 hi/lo halves) is the tensor's own; products of a
-bf16 operand and a dosage are exact in f32, so both the kernels and the
-plain versions upcast before multiplying and accumulate in f32.
+bf16 operand and a dosage are exact in f32, so the plain versions upcast
+before multiplying and every kernel accumulates in f32 (gp on the bf16
+tensor cores, the others in f32 FMAs).
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ import torch
 TN = 2048           # plane-permutation period (individuals); n_pad multiple
 ROW_TILE = 32       # SNP rows: the kernels take m_pad % ROW_TILE == 0
 PLANES = 16         # codes per int32 word
+GP_ROWS = 128       # SNP rows per gp block (csrc/rhe_kernels.cu GP_ROWS)
+GP_BLOCKS = 512     # gp_splits aims at no more than this many row x K blocks
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "rhe_kernels.cu")
@@ -77,6 +80,27 @@ def plane_permutation(n_pad: int, tn: int = TN,
 
 def pad_to(x: int, mult: int) -> int:
     return -(-x // mult) * mult
+
+
+def gp_splits(m_pad: int, n_pad: int) -> tuple[int, int]:
+    """(periods per split, S): gp_matmul's split-K partition over
+    individuals. Split s takes the whole plane-permutation periods
+    [s * per, min((s + 1) * per, n_pad / TN)), i.e. words
+    [s * per * 128, ...) of every row; every split is non-empty. S grows
+    until the grid holds about GP_BLOCKS blocks of GP_ROWS rows (or one
+    period per split), and depends on the shapes alone, never on the card,
+    so the result is the same on any card and on every call."""
+    periods = n_pad // TN
+    cap = max(1, GP_BLOCKS // -(-m_pad // GP_ROWS))
+    per = -(-periods // cap)
+    return per, -(-periods // per)
+
+
+def gp_workspace_shape(m_pad: int, n_pad: int, W: int) -> tuple:
+    """Shape of gp_matmul's f32 partials, (S, m_pad, W); empty when
+    S == 1 (the kernel then writes the output itself)."""
+    S = gp_splits(m_pad, n_pad)[1]
+    return (S, m_pad, W) if S > 1 else (0,)
 
 
 # ------------------------------------------------------------------ build
@@ -110,7 +134,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                 os.remove(tmp)
     lib = ctypes.CDLL(_SO)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.rhe_gp.argtypes = [P, P, I, I, P, L, L, I, P]
+    lib.rhe_gp.argtypes = [P, P, I, I, P, P, L, L, I, I, I, P]
     lib.rhe_ytg.argtypes = [P, P, I, I, P, L, L, I, P]
     lib.rhe_ytg_acc.argtypes = [P, P, I, P, P, P, P, L, L, I, I, P]
     lib.rhe_ytg_acc2.argtypes = [P, P, P, I, P, P, P, L, L, I, I, P]
@@ -217,14 +241,16 @@ def gp_matmul(words: torch.Tensor, C: torch.Tensor,
     words: (m_pad, n_pad/16) int32; C: (n_pad, W) f32, or bf16 hi|lo
     halves side by side when split; returns (m_pad, W) f32.
 
-    Bound on the H100: f32 FMAs on the CUDA cores (2·m·N·W flops against
-    m·N/4 + 4·N·W bytes, far above the card's flop/byte balance), and the
-    grid: one block per 16 SNP rows x 24 columns keeps the whole reduction
-    over N inside the block (deterministic, no atomics, no split-K), which
-    at m_pad = 1024 is 64-128 blocks for 132 SMs. Design: each warp keeps
-    4 rows x 12 columns of accumulators in registers over 32 words per
-    step, C rows are staged once per step in shared memory for all eight
-    warps, and the dosage-to-float conversion is a mantissa OR."""
+    Bound on the H100: bytes (m·N/4 of words and N·W·2 of bf16 C, against
+    2·m·N·W flops on the bf16 tensor cores). Design: a deterministic
+    split-K over individuals (gp_splits): each block takes 128 SNP rows,
+    64 columns and a contiguous range of whole 2048-individual periods,
+    stages words and C rows in shared memory with cp.async and runs
+    mma.sync bf16 (dosages are exact in bf16) with f32 accumulators into
+    an (S, m_pad, W) workspace from torch.empty; a second kernel sums the
+    S partials in split order. No atomics, so every launch is
+    deterministic and the result depends on the shapes alone. f32 C takes
+    the same grid with an f32 FMA loop on the CUDA cores."""
     _check_words(words)
     _check_operand(C, "C", words)
     m_pad, nw = words.shape
@@ -235,11 +261,16 @@ def gp_matmul(words: torch.Tensor, C: torch.Tensor,
         return gp_plain(words, C, square)
     lib = build()
     W = C.shape[1]
+    n_pad = nw * PLANES
+    per, S = gp_splits(m_pad, n_pad)
     out = torch.empty((m_pad, W), dtype=torch.float32, device=words.device)
+    part = torch.empty(gp_workspace_shape(m_pad, n_pad, W),
+                       dtype=torch.float32, device=words.device)
     with torch.cuda.device(words.device):
         _check(lib.rhe_gp(words.data_ptr(), C.data_ptr(),
                           int(C.dtype == torch.bfloat16), int(square),
-                          out.data_ptr(), m_pad, nw, W, _stream(words)),
+                          part.data_ptr(), out.data_ptr(), m_pad, nw, W,
+                          per, S, _stream(words)),
                "gp_matmul")
     launches["gp_matmul_square" if square else "gp_matmul"] += 1
     return out

@@ -101,6 +101,42 @@ def test_cuda_kernels_match_plain(cuda_device, split, m, n, W, Q):
         1, 1, 4, 2, 2, 1]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["f32", "split", "bf16"])
+@pytest.mark.parametrize("W", [1, 8, 44, 61])
+@pytest.mark.parametrize("m,n", [
+    (20, 700),                # m_pad 32 < one 128-row tile, S = 1
+    (300, 10000),             # three row tiles, S = 5 (gp_splits)
+])
+def test_cuda_gp_split_k(cuda_device, operand, W, m, n):
+    """gp and gp² against the plain version at ragged widths (odd bf16
+    widths take the 2-byte copy) and at one and several K splits; two
+    launches bitwise equal; the product against a float64 one (split: the
+    two halves summed, against the f32 C they came from)."""
+    words, perm, m, n, m_pad, n_pad = make_block(m, n, seed=m + W)
+    assert tk.gp_splits(m_pad, n_pad)[1] == (1 if n_pad == 2048 else 5)
+    gen = torch.Generator(device=cuda_device).manual_seed(W)
+    w = torch.from_numpy(words).to(cuda_device)
+    C = C32 = torch.randn(n_pad, W, device=cuda_device, generator=gen)
+    if operand == "bf16":
+        C = C32.to(torch.bfloat16)
+        C32 = C.float()
+    split = operand == "split"
+    C = _hilo(C32, 1).contiguous() if split else C
+    for square in (False, True):
+        got = tk.gp_matmul(w, C, square)
+        assert got.shape == (m_pad, C.shape[1])
+        assert torch.equal(got, tk.gp_matmul(w, C, square))
+        assert_close(got, tk.gp_plain(w, C, square))
+        ref = tk.decode_words(w, square).double() @ C32.double()
+        if split:
+            got = got[:, :W] + got[:, W:]
+        # split2 keeps ~16 bits of C: |C - hi - lo| <= 2^-17 |C| per term
+        np.testing.assert_allclose(got.double().cpu().numpy(),
+                                   ref.cpu().numpy(), rtol=2e-4,
+                                   atol=2e-4 * ref.abs().max().item())
+
+
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
     from pyrhe_tpu_torch.io import synth

@@ -246,3 +246,32 @@ def test_unported_exports_raise(small_dataset):
         rhe.get_XtXz("out")
     with pytest.raises(NotImplementedError, match="item 12"):
         rhe.simulate_pheno([0.3])
+
+
+def test_port_builds_its_own_bed_decoder(small_dataset):
+    """The native .bed decoder compiles from the port's own source (no
+    path under the JAX package) and decodes a block exactly as the numpy
+    path does; no port module names a path under pyrhe_tpu/."""
+    import re
+
+    from pyrhe_tpu_torch.io import bed
+    port = os.path.join(ROOT, "pyrhe_tpu_torch")
+    assert os.path.commonpath([bed._SRC_PATH, port]) == port
+    assert os.path.isfile(bed._SRC_PATH)
+    lib = bed._load_native()
+    assert lib is not None
+    so = os.path.join(bed._NATIVE_DIR, "libbeddecode.so")
+    assert os.path.getmtime(so) >= os.path.getmtime(bed._SRC_PATH)
+    ds = small_dataset
+    n, _ = readers.read_fam(ds["prefix"] + ".fam")
+    m = readers.read_bim(ds["prefix"] + ".bim")
+    bf = bed.BedFile(ds["prefix"] + ".bed", n, m)
+    packed = bf.read_packed_block(0, m)
+    np.testing.assert_array_equal(bf.read_block(0, m),
+                                  bed.decode_packed(packed, n))
+    path_literal = re.compile(r"""['"]pyrhe_tpu['"/]""")
+    for dirpath, _, files in os.walk(port):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cpp")):
+                text = open(os.path.join(dirpath, f)).read()
+                assert not path_literal.search(text), f

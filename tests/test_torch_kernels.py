@@ -267,3 +267,40 @@ def test_wrappers_check_their_contract(bad):
                                torch.zeros((4, 32), dtype=torch.bfloat16),
                                torch.zeros((4, 1)), torch.ones((1, 2048)),
                                torch.zeros((4, 2048)), split=False)
+
+
+@pytest.mark.parametrize("m_pad,n_pad", [
+    (32, 2048), (1024, 100352), (320, 10240), (1024, 500 * 1024),
+    (96, 2048 * 700), (4096, 2048 * 3),
+])
+def test_gp_splits_cover_every_word_once(m_pad, n_pad):
+    """gp_matmul's split-K partition: contiguous ranges of whole periods
+    (128 words each), none empty, that cover every word of a row once."""
+    per, S = tk.gp_splits(m_pad, n_pad)
+    periods = n_pad // tk.TN
+    assert per >= 1 and 1 <= S <= periods
+    covered = np.zeros(n_pad // tk.PLANES, int)
+    for s in range(S):               # the kernel's range for blockIdx.z = s
+        p0, p1 = s * per, min(periods, (s + 1) * per)
+        assert p1 > p0
+        covered[p0 * 128:p1 * 128] += 1
+    assert (covered == 1).all()
+    row_tiles = -(-m_pad // tk.GP_ROWS)
+    assert S == periods or row_tiles * S <= tk.GP_BLOCKS
+
+
+def test_gp_splits_depend_on_shapes_alone(monkeypatch):
+    """S and the workspace are functions of (m_pad, n_pad, W): the same on
+    every call, and computed without asking torch about any card."""
+    def no_card(*a, **k):
+        raise AssertionError("gp_splits asked about the card")
+
+    for fn in ("is_available", "device_count", "get_device_properties"):
+        monkeypatch.setattr(torch.cuda, fn, no_card)
+    first = [tk.gp_splits(1024, n) for n in (2048, 100352, 512000)]
+    assert [tk.gp_splits(1024, n) for n in (2048, 100352, 512000)] == first
+    assert first == [(1, 1), (1, 49), (4, 63)]
+    # the phase-4 block: 8 row tiles x 49 one-period splits
+    assert tk.gp_workspace_shape(1024, 100352, 44) == (49, 1024, 44)
+    assert tk.gp_workspace_shape(32, 2048, 44) == (0,)     # S == 1: none
+    assert tk.gp_workspace_shape(320, 10240, 61) == (5, 320, 61)
