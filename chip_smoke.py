@@ -16,16 +16,18 @@ non-zero without printing a result:
    22 / 44 split, stage-2 rows 320 split: K = 8 bins x b2 = 20 probe
    columns of one component), split and unsplit; ytg_acc must equal ytg
    plus the tensor transform bitwise, ytg_acc2 two ytg calls (g, g²) plus
-   the transform; gp must repeat bitwise, and its error against a float64
-   product is printed beside the plain f32 product's. Median times of the
-   kernel, its plain version and the library yardstick (torch.matmul on
-   the tile decoded beforehand, f32 operands, TF32 off: the product alone
-   for ytg_acc, both products for ytg_acc2), and each kernel's bound: the
-   larger of its bytes (inputs read once, outputs written once) over
-   3.35 TB/s and its flops over the peak for the operand type (989 TF/s
-   bf16 on the tensor cores, 67 TF/s f32), H100 SXM at 700 W. gp is timed
+   the transform; gp, ytg and ytg² must repeat bitwise, and their error
+   against a float64 product is printed beside the plain f32 product's.
+   Median times of the kernel, its plain version and the library
+   yardstick (torch.matmul on the tile decoded beforehand, f32 operands,
+   TF32 off: the product alone for ytg_acc, both products for ytg_acc2),
+   and each kernel's bound: the larger of its bytes (inputs read once,
+   outputs written once) over 3.35 TB/s and its flops over the peak for
+   the operand type (989 TF/s bf16 on the tensor cores, 67 TF/s f32),
+   H100 SXM at 700 W. gp is timed
    again on a C built as the main path builds it (mask column + probes,
-   ops/moments._stage1_cols);
+   ops/moments._stage1_cols), ytg and ytg² at RHE-DOM's 640 split rows
+   (the g-side columns of both components);
 4. the two main paths at a biobank cohort's size, on one synthesized
    cohort (pyrhe_tpu_torch/cohort.py, which profile_run shares):
    N = 100,000 individuals x M = 100,000 SNPs (a 2.5 GB .bed), 8 bins,
@@ -252,21 +254,46 @@ def phase_kernels():
             f" {C_main.dtype}: max abs err vs plain {err:.3e}; kernel "
             f"{ms:.4f} ms")
 
+    # RHE-DOM's stage 2 over g on the main path: both components' g-side
+    # columns, 2 x 160 output rows, 640 split rows
+    Y640 = torch.randn(QR, M_PAD, device=dev, generator=gen)
+    Y640[:, 1000:] = 0.0
+    Y640 = _hilo(Y640, 0).contiguous()
     for square in (False, True):
         name = "ytg_matmul_square" if square else "ytg_matmul"
         for split, Yop in ((False, Yt), (True, Yh)):
             got = K.ytg_matmul(words, Yop, square)
+            if not torch.equal(got, K.ytg_matmul(words, Yop, square)):
+                raise AssertionError(f"{name} split={split}: two launches "
+                                     "differ (must be deterministic)")
             ref = K.ytg_plain(words, Yop, square)
             err = _close(f"{name} split={split}", got, ref)
+            # against float64 of the f32 Yt: the kernel and the plain f32
+            # product (split: the two halves summed)
+            r64 = (Yt[:Q] if split else Yt).double() @ dense[square].double()
+            e64 = {who: (K.sum_halves(x, split).double() - r64).abs().max()
+                   .item() for who, x in (("kernel", got), ("plain", ref))}
+            rel = r64.abs().max().item()
+            del r64
             ms = _median_ms(lambda: K.ytg_matmul(words, Yop, square))
             pms = _median_ms(lambda: K.ytg_plain(words, Yop, square), reps=5)
             Yf = Yop.float()
             lms = _median_ms(lambda: Yf @ dense[square], reps=10)
             line = record(name, split, err, ms, pms, lms,
                           words_b + _nbytes(Yop, got),
-                          2 * Yop.shape[0] * M_PAD * N_PAD, Yop.dtype)
+                          2 * Yop.shape[0] * M_PAD * N_PAD, Yop.dtype,
+                          err_vs_f64=e64["kernel"])
             log(f"[3 kernels] {name} split={split} Yt {tuple(Yop.shape)} "
-                f"{Yop.dtype}: max abs err {err:.3e}; {line}")
+                f"{Yop.dtype}: max abs err vs plain {err:.3e}; vs float64 "
+                f"kernel {e64['kernel']:.3e}, plain f32 {e64['plain']:.3e} "
+                f"(max |ref| {rel:.3e}); bitwise repeatable; {line}")
+        _close(f"{name} Yt {tuple(Y640.shape)}",
+               K.ytg_matmul(words, Y640, square),
+               K.ytg_plain(words, Y640, square))
+        ms = _median_ms(lambda: K.ytg_matmul(words, Y640, square))
+        res[name]["ms_main_path_rows"] = ms
+        log(f"[3 kernels] {name} at the RHE-DOM main path's "
+            f"{Y640.shape[0]} split rows: kernel {ms:.4f} ms")
 
     mask = (torch.rand(1, N_PAD, device=dev, generator=gen) < 0.9).float()
     for split, Yop in ((False, Yt[:Q].contiguous()), (True, Yh)):

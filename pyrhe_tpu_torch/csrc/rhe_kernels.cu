@@ -24,10 +24,13 @@
 // period 2048 (ops/kernels.plane_permutation).
 //
 // No kernel uses atomics and every sum runs in a fixed order, so every
-// launch is deterministic. rhe_gp sums over individuals on the bf16 tensor
-// cores (f32 accumulators) in a split-K grid with an ordered reduction;
-// rhe_ytg / rhe_ytg_acc / rhe_ytg_acc2 are f32 FMA chains that share one
-// main loop: their products are bitwise equal element by element.
+// launch is deterministic. bf16 operands run on the tensor cores
+// (mma.sync, f32 accumulators): rhe_gp sums over individuals in a split-K
+// grid with an ordered reduction; rhe_ytg / rhe_ytg_acc / rhe_ytg_acc2 sum
+// over SNP rows inside one block and share one main loop, so their
+// products are bitwise equal element by element. f32 operands take f32
+// FMA loops on the CUDA cores instead (the tensor cores would round them
+// to TF32), the ytg family again through one shared loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,11 +41,6 @@ namespace {
 constexpr int kTileN = 2048;      // plane-permutation period (individuals)
 constexpr int kTileWords = 128;   // int32 words per permutation period
 constexpr int kPlanes = 16;       // codes per word
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // SWAR dosages of a cleaned word: code 00/10/11 -> 0/1/2 in every 2-bit
 // field at once, with no carry between fields. Unsigned: dosage 2 in the
@@ -443,14 +441,395 @@ __global__ void gp_reduce(const float* __restrict__ part,
   out[i] = v;
 }
 
-// ----------------------------------------------------------- ytg main loop
-// One block per tile of 16 words (x 16 planes = 256 decoded columns) x 32
-// Yt rows; the loop over all SNP rows runs inside the block, 32 rows per
+// ------------------------------------------------------------ ytg family
+// Three kernels, one main loop per operand type, so that their products
+// are bitwise equal element by element:
+//   ytg_kernel         out (Qr, n_pad) = Yt @ g (Yt @ g² when Square);
+//                      replaces pyrhe_tpu/ops/kernels.py:524 ytg_matmul
+//   ytg_acc_kernel<1>  tot += mask * (scale * (sum_halves(Yt @ g) - rank1));
+//                      replaces pyrhe_tpu/ops/kernels.py:407 ytg_acc_matmul
+//   ytg_acc_kernel<2>  tot += mask * ((sum_halves(Yt1 @ g)
+//                                      + sum_halves(Yt2 @ g²)) - rank1);
+//                      replaces pyrhe_tpu/ops/kernels.py:346 ytg_acc2_matmul
+//
+// Bound: operations. At one block of the main path (320 split Yt rows,
+// m_pad 1024, n_pad 100352) the 65.8 GFLOP take 66.5 us on the bf16
+// tensor cores (ytg_acc2: two products, 133 us); the words (25.7 MB) and
+// the f32 output, or the totals' read and write (128 MB), take 46 us at
+// 3.35 TB/s.
+//
+// Design for bf16 Yt (split2 hi/lo rows, the main path; or plain bf16):
+// mma.sync m16n8k16 bf16 -> f32 on the tensor cores with A = Yt (m = Yt
+// rows, k = SNP rows) and B = dosages (k = SNP rows, n = 8 consecutive
+// words at one plane: 8 consecutive output columns). A block of 8 warps
+// takes 64 Yt rows, picked by a row map (identity; for the split acc
+// kernels the hi and lo rows of one output row sit at rows r and r + 8 of
+// one m16 tile, so one thread holds both halves), x MT*NT words x 16
+// planes, and loops over all SNP rows inside the block in increasing
+// order, 64 a stage: each stage's words and mapped Yt rows are staged
+// with cp.async in a 4-stage ring (unmapped rows and rows past m_pad
+// zero-filled; no f32 copy). A warp owns MT m16 tiles of rows x NT planes
+// of one 8-word group. Per k16 step a thread loads its word column at SNP
+// rows 2t, 2t+1, 2t+8, 2t+9 (its B fragment's k), packs the halves
+// holding its planes into two 16-bit pairs (PRMT), SWAR-decodes each pair
+// once and forms every plane's b0 / b1 with one LOP3 and one exact bf16x2
+// FMA (field_bf16x2; g² with one more, square_bf16x2); one B pair feeds
+// the warp's MT m16 tiles (and both operands of ytg_acc2). A fragments
+// come from the staged Yt through ldmatrix. No split-K, no atomics: every
+// accumulator starts at zero and takes the same mma chain in increasing k
+// in all three kernels, whatever the tile shape, so results depend on the
+// shapes alone. (MT, NT) are template parameters, so no branch separates
+// ldmatrix from mma: 64 accumulators a thread, (4, 4) for ytg, (2, 8) for
+// ytg_acc, (2, 4) per operand for ytg_acc2, each the fastest of the shapes
+// timed on the card.
+//
+// f32 Yt (not on the card's main path) takes the CUDA-core FMA loop
+// further down: the tensor cores would round it to TF32.
+constexpr int YM_THREADS = 256;          // 8 warps
+constexpr int YM_ROWS = 64;              // Yt rows per block
+constexpr int YM_KC = 64;                // SNP rows per stage
+constexpr int YM_STAGES = 4;             // stages in the ring
+constexpr int YM_WPITCH = 20;            // staged words per SNP row: 2*20 % 32
+                                         // == 8, so B loads are conflict-free
+constexpr int YM_YPITCH = YM_KC + 8;     // staged bf16 per Yt row: 144 bytes,
+                                         // an odd number of 16-byte units
+constexpr int YM_WBYTES = YM_KC * YM_WPITCH * 4;
+constexpr int YM_YBYTES = YM_ROWS * YM_YPITCH * 2;
+constexpr int YTG_MT = 4, YTG_NT = 4;    // m16 tiles, planes a warp: ytg
+constexpr int ACC_MT = 2, ACC_NT = 8;    // ytg_acc
+constexpr int ACC2_MT = 2, ACC2_NT = 4;  // ytg_acc2 (two operand sets)
+
+template <int NOps>
+__host__ __device__ constexpr int ym_stage_bytes() {
+  return YM_WBYTES + NOps * YM_YBYTES;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+      : "memory");
+}
+
+// The 2-bit field at bit pos (0, 2 or 4) of each 16-bit half of d as
+// bf16x2 dosages: OR-ing it into the mantissa of bf16 2^(7 - pos) (one
+// LOP3) gives 2^(7 - pos) + v, and one exact bf16x2 FMA takes 2^(7 - pos)
+// away. Fields 0-7 of a half sit at pos 2 (j % 3) of d >> 6 (j / 3).
+__device__ __forceinline__ uint32_t field_bf16x2(uint32_t d, int pos) {
+  const uint32_t base = (uint32_t)(134 - pos) << 7;       // bf16 2^(7 - pos)
+  uint32_t x, r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
+      : "=r"(x) : "r"(d), "r"(0x00030003u << pos), "r"(base * 0x10001u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(r)
+      : "r"(x), "r"(0x3F803F80u), "r"((base | 0x8000u) * 0x10001u));
+  return r;
+}
+
+// v * v: bf16x2 dosages 0, 1, 2 -> 0, 1, 4, exact (adding -0 keeps +0).
+__device__ __forceinline__ uint32_t square_bf16x2(uint32_t v) {
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %1, %2;\n"
+      : "=r"(r) : "r"(v), "r"(0x80008000u));
+  return r;
+}
+
+// Column of word w at plane 0 (add p * 128 for plane p).
+__device__ __forceinline__ int64_t word_col(int64_t w) {
+  return (w / kTileWords) * kTileN + w % kTileWords;
+}
+
+// Stage SNP rows [m0, m0 + YM_KC): the block's WB words of each, and
+// the 64 mapped rows of each Yt operand. Unmapped rows (rows[r] < 0) and
+// SNP rows past m_pad are zero-filled; zero words decode to dosage 0, so
+// a stage past m_pad adds exact zeros. Every loop has a compile-time trip
+// count (YM_THREADS copies a round), so the copies unroll into straight
+// code.
+template <int NOps, int WB>
+__device__ __forceinline__ void ym_stage(char* buf,
+                                         const uint32_t* __restrict__ words,
+                                         const __nv_bfloat16* yt0,
+                                         const __nv_bfloat16* yt1,
+                                         const int* rows, int64_t m_pad,
+                                         int64_t nw, int64_t kb, int64_t m0) {
+  constexpr int WCP = WB / 4;            // 16-byte copies per word row
+  constexpr int YCP = YM_KC / 8;         // 16-byte copies per Yt row
+  constexpr int NW = YM_KC * WCP, NY = YM_ROWS * YCP;
+  static_assert(NY % YM_THREADS == 0, "Yt copies: whole rounds");
+  uint32_t* sw = reinterpret_cast<uint32_t*>(buf);
+#pragma unroll
+  for (int i = 0; i < (NW + YM_THREADS - 1) / YM_THREADS; ++i) {
+    const int e = threadIdx.x + i * YM_THREADS;
+    if (NW % YM_THREADS == 0 || e < NW) {
+      const int r = e / WCP, q = e % WCP;
+      const bool ok = m0 + r < m_pad;
+      cp_async<16>(sw + r * YM_WPITCH + 4 * q,
+                   ok ? words + (m0 + r) * nw + kb + 4 * q : words,
+                   ok ? 16 : 0);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NOps; ++k) {
+    const __nv_bfloat16* yt = k == 0 ? yt0 : yt1;
+    __nv_bfloat16* sy =
+        reinterpret_cast<__nv_bfloat16*>(buf + YM_WBYTES + k * YM_YBYTES);
+#pragma unroll
+    for (int i = 0; i < NY / YM_THREADS; ++i) {
+      const int e = threadIdx.x + i * YM_THREADS;
+      const int r = e / YCP, q = e % YCP, y = rows[r];
+      const bool ok = y >= 0 && m0 + 8 * q < m_pad;
+      cp_async<16>(sy + r * YM_YPITCH + 8 * q,
+                   ok ? yt + y * m_pad + m0 + 8 * q : yt, ok ? 16 : 0);
+    }
+  }
+}
+
+// One warp's accumulators: acc[k][mt][j] is the m16 x n8 tile of operand
+// k (Yt1 against g, or g² when Square; Yt2 against g²), m16 tile mt of
+// the warp's rows, plane plane0 + j. Accumulator i of a tile: tile row
+// g + 8 * (i >> 1), word 2t + (i & 1) of the warp's group, so i = 0, 1
+// (and 2, 3) are two adjacent output columns.
+template <int NOps, int MT, int NT, bool Square>
+struct YtgMmaTile {
+  static_assert(YM_ROWS % (16 * MT) == 0 && 8 % NT == 0 && MT * NT % 8 == 0,
+                "the warps' m16 tiles cover the block's rows, a warp's planes "
+                "lie in one 16-bit half, and the 8 warps whole 8-word groups");
+  static constexpr int kRows = 16 * MT;                // Yt rows a warp
+  static constexpr int kRowWarps = YM_ROWS / kRows;
+  static constexpr int kWarpsPerGroup = kPlanes / NT;
+  static constexpr int kWords = MT * NT;               // words a block
+  float acc[NOps][MT][NT][4];
+  int wr, wcol, plane0;       // row warp, first word, first plane
+
+  __device__ __forceinline__ YtgMmaTile() {
+    const int warp = threadIdx.x >> 5, wc = warp / kRowWarps;
+    wr = warp % kRowWarps;
+    wcol = 8 * (wc / kWarpsPerGroup);
+    plane0 = NT * (wc % kWarpsPerGroup);
+#pragma unroll
+    for (int k = 0; k < NOps; ++k)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[k][mt][j][i] = 0.0f;
+  }
+
+  __device__ __forceinline__ void compute(const char* buf) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    // the 16-bit halves holding planes plane0 .. plane0 + NT - 1
+    const uint32_t sel = plane0 < 8 ? 0x5410u : 0x7632u;
+    const int sh = 2 * (plane0 & 7);
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(buf)
+                         + 2 * t * YM_WPITCH + wcol + g;
+    // ldmatrix x4: lane l addresses row (l & 7) + 8 ((l >> 3) & 1), k
+    // 8 (l >> 4) of an m16 x k16 tile, which gives a0 .. a3 in mma order
+    const uint32_t a_base = smem_u32(
+        reinterpret_cast<const __nv_bfloat16*>(buf + YM_WBYTES)
+        + (wr * kRows + (lane & 7) + ((lane >> 3) & 1) * 8) * YM_YPITCH
+        + (lane >> 4) * 8);
+#pragma unroll
+    for (int kk = 0; kk < YM_KC; kk += 16) {
+      const uint32_t* w = sw + kk * YM_WPITCH;
+      const uint32_t d0 =
+          swar_doses(__byte_perm(w[0], w[YM_WPITCH], sel)) >> sh;
+      const uint32_t d1 = swar_doses(
+          __byte_perm(w[8 * YM_WPITCH], w[9 * YM_WPITCH], sel)) >> sh;
+      uint32_t a[NOps][MT][4];
+#pragma unroll
+      for (int k = 0; k < NOps; ++k)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldsm_x4(a_base + k * YM_YBYTES
+                      + (mt * 16 * YM_YPITCH + kk) * 2, a[k][mt]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int s = 6 * (j / 3), pos = 2 * (j % 3);
+        const uint32_t v0 = field_bf16x2(d0 >> s, pos);
+        const uint32_t v1 = field_bf16x2(d1 >> s, pos);
+#pragma unroll
+        for (int k = 0; k < NOps; ++k) {
+          const bool sq = Square || k > 0;
+          const uint32_t b0 = sq ? square_bf16x2(v0) : v0;
+          const uint32_t b1 = sq ? square_bf16x2(v1) : v1;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_bf16(acc[k][mt][j], a[k][mt], b0, b1);
+        }
+      }
+    }
+  }
+
+  // Column of accumulator 0 of plane plane0 (add j * 128 for plane j).
+  __device__ __forceinline__ int64_t col0(int64_t kb) const {
+    return word_col(kb + wcol + 2 * (threadIdx.x & 3))
+           + (int64_t)plane0 * kTileWords;
+  }
+};
+
+// The ytg family's main loop over SNP rows: rows[] (the block's row map)
+// must be written before the call; the first barrier publishes it. A warp
+// whose first mapped row is unmapped has no mapped row (both maps grow
+// with the tile row) and skips the mma.
+template <int NOps, class Tile>
+__device__ __forceinline__ void ytg_mma_mainloop(
+    Tile& tile, char* smem, const int* rows,
+    const uint32_t* __restrict__ words, const __nv_bfloat16* yt0,
+    const __nv_bfloat16* yt1, int64_t m_pad, int64_t nw, int64_t kb) {
+  constexpr int stage = ym_stage_bytes<NOps>();
+  constexpr int WB = Tile::kWords;
+  __syncthreads();
+  const bool active = rows[tile.wr * Tile::kRows] >= 0;
+  const int nk = (int)((m_pad + YM_KC - 1) / YM_KC);
+#pragma unroll
+  for (int s = 0; s < YM_STAGES - 1; ++s) {
+    if (s < nk)
+      ym_stage<NOps, WB>(smem + s * stage, words, yt0, yt1, rows, m_pad, nw,
+                         kb, (int64_t)s * YM_KC);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<YM_STAGES - 2>();   // stage i has landed (this thread's)
+    __syncthreads();                  // everyone's; stage i - 1 is computed
+    const int next = i + YM_STAGES - 1;
+    if (next < nk)
+      ym_stage<NOps, WB>(smem + (next % YM_STAGES) * stage, words, yt0, yt1,
+                         rows, m_pad, nw, kb, (int64_t)next * YM_KC);
+    cp_async_commit();                // empty groups near the end keep count
+    if (active) tile.compute(smem + (i % YM_STAGES) * stage);
+  }
+}
+
+template <bool Square, int MT, int NT>
+__global__ void __launch_bounds__(YM_THREADS, 2)
+ytg_kernel(const uint32_t* __restrict__ words,
+           const __nv_bfloat16* __restrict__ yt, float* __restrict__ out,
+           int64_t m_pad, int64_t nw, int qr) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int rows[YM_ROWS];
+  using Tile = YtgMmaTile<1, MT, NT, Square>;
+  const int q0 = blockIdx.x * YM_ROWS;
+  const int64_t kb = (int64_t)blockIdx.y * Tile::kWords;
+  if (threadIdx.x < YM_ROWS) {
+    const int q = q0 + threadIdx.x;
+    rows[threadIdx.x] = q < qr ? q : -1;
+  }
+  Tile tile;
+  ytg_mma_mainloop<1>(tile, smem, rows, words, yt, yt, m_pad, nw, kb);
+
+  const int g = (threadIdx.x & 31) >> 2;
+  const int64_t n_pad = nw * kPlanes, col0 = tile.col0(kb);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + tile.wr * Tile::kRows + mt * 16 + h * 8 + g;
+      if (q >= qr) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(out + q * n_pad + col0 + j * kTileWords) =
+            make_float2(tile.acc[0][mt][j][2 * h],
+                        tile.acc[0][mt][j][2 * h + 1]);
+    }
+}
+
+// The acc epilogue of one element, each step rounded on its own (never
+// contracted into FMAs) in the order of the materializing path's tensor
+// ops, so the result is bitwise equal to them:
+//   NOps = 1: tot + mask * (scale * (a0 - rank1))    (a0 = hi + lo)
+//   NOps = 2: tot + mask * ((a0 + a1) - rank1)       (a0 = hi1 + lo1, ...)
+template <int NOps>
+__device__ __forceinline__ float acc_value(float a0, float a1, float r1,
+                                           float s, float m, float t) {
+  float v = __fsub_rn(NOps == 2 ? __fadd_rn(a0, a1) : a0, r1);
+  if (NOps == 1) v = __fmul_rn(v, s);
+  return __fadd_rn(t, __fmul_rn(v, m));
+}
+
+// acc_value at columns n, n + 1 of output row oq, as 8-byte accesses.
+template <int NOps>
+__device__ __forceinline__ void acc_store2(
+    const float (&a0)[2], const float (&a1)[2], int oq, int64_t n,
+    const float* __restrict__ rank1, const float* __restrict__ scale,
+    const float* __restrict__ mask, float* __restrict__ tot, int64_t n_pad) {
+  float2* tp = reinterpret_cast<float2*>(tot + oq * n_pad + n);
+  const float2 m = *reinterpret_cast<const float2*>(mask + n);
+  const float2 s = NOps == 1 ? *reinterpret_cast<const float2*>(scale + n)
+                             : make_float2(1.0f, 1.0f);
+  const float r1 = rank1[oq];
+  float2 v = *tp;
+  v.x = acc_value<NOps>(a0[0], a1[0], r1, s.x, m.x, v.x);
+  v.y = acc_value<NOps>(a0[1], a1[1], r1, s.y, m.y, v.y);
+  *tp = v;
+}
+
+// NOps = 1 (ytg_acc): one operand against g, epilogue with the
+// per-individual scale. NOps = 2 (ytg_acc2, dominance): Yt1 against g and
+// Yt2 against g² over the same staged words, same row map, no scale.
+// Split: tile row r holds the hi (r & 8 == 0) or lo half of output row
+// q0 + (r >> 4) * 8 + (r & 7), so a block takes 32 output rows; unsplit:
+// 64 output rows as they come.
+template <int NOps, int MT, int NT>
+__global__ void __launch_bounds__(YM_THREADS, 2)
+ytg_acc_kernel(const uint32_t* __restrict__ words,
+               const __nv_bfloat16* __restrict__ yt0,
+               const __nv_bfloat16* __restrict__ yt1,
+               const float* __restrict__ rank1,
+               const float* __restrict__ scale,
+               const float* __restrict__ mask, float* __restrict__ tot,
+               int64_t m_pad, int64_t nw, int q, int split) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int rows[YM_ROWS];
+  using Tile = YtgMmaTile<NOps, MT, NT, false>;
+  const int q0 = blockIdx.x * (split ? YM_ROWS / 2 : YM_ROWS);
+  const int64_t kb = (int64_t)blockIdx.y * Tile::kWords;
+  if (threadIdx.x < YM_ROWS) {
+    const int r = threadIdx.x;
+    const int oq = split ? q0 + (r >> 4) * 8 + (r & 7) : q0 + r;
+    rows[r] = oq >= q ? -1 : (split && (r & 8)) ? q + oq : oq;
+  }
+  Tile tile;
+  ytg_mma_mainloop<NOps>(tile, smem, rows, words, yt0, yt1, m_pad, nw, kb);
+
+  const int g = (threadIdx.x & 31) >> 2;
+  const int64_t n_pad = nw * kPlanes, col0 = tile.col0(kb);
+  constexpr int L = NOps - 1;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int64_t n = col0 + j * kTileWords;
+      const float(&c0)[4] = tile.acc[0][mt][j];
+      const float(&c1)[4] = tile.acc[L][mt][j];
+      if (split) {
+        const int oq = q0 + (tile.wr * MT + mt) * 8 + g;
+        if (oq >= q) continue;
+        const float a0[2] = {__fadd_rn(c0[0], c0[2]),
+                             __fadd_rn(c0[1], c0[3])};
+        const float a1[2] = {__fadd_rn(c1[0], c1[2]),
+                             __fadd_rn(c1[1], c1[3])};
+        acc_store2<NOps>(a0, a1, oq, n, rank1, scale, mask, tot, n_pad);
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int oq = q0 + tile.wr * Tile::kRows + mt * 16 + h * 8 + g;
+          if (oq >= q) continue;
+          const float a0[2] = {c0[2 * h], c0[2 * h + 1]};
+          const float a1[2] = {c1[2 * h], c1[2 * h + 1]};
+          acc_store2<NOps>(a0, a1, oq, n, rank1, scale, mask, tot, n_pad);
+        }
+      }
+    }
+}
+
+// ------------------------------------------------ ytg family, f32 Yt
+// The same three contracts in f32 FMA chains on the CUDA cores. One block
+// per tile of 16 words (x 16 planes = 256 decoded columns) x 32 Yt rows;
+// the loop over all SNP rows runs inside the block, 32 rows per
 // shared-memory step. Thread layout: wl = word in tile (16), pg = plane
 // group (4 planes each), qg = Yt row group (8 rows each); every thread
-// keeps 8 x 4 f32 accumulators per operand (64 for the two operands of
-// ytg_acc2, which must not spill: if -Xptxas -v reports spills, narrow
-// the tile to 8 rows x 4 halves). The Yt tile is stored
+// keeps 8 x 4 f32 accumulators per operand. The Yt tile is stored
 // transposed so a thread reads its 8 rows with two 16-byte loads; the 32
 // threads of a warp share one qg, so those loads are broadcasts.
 constexpr int YT_THREADS = 256;
@@ -475,10 +854,10 @@ struct YtgSmem {
 // Operand k's chain is the one a one-operand launch with Square = (k > 0
 // || Square) computes for that row. s.rows must be written before the call
 // (the first barrier inside publishes it).
-template <bool Square, int NOps, typename T>
-__device__ __forceinline__ void ytg_mainloop(
-    const uint32_t* __restrict__ words, const T* __restrict__ yt0,
-    const T* __restrict__ yt1, int64_t m_pad, int64_t nw, int64_t kb,
+template <bool Square, int NOps>
+__device__ __forceinline__ void ytg_fma_mainloop(
+    const uint32_t* __restrict__ words, const float* __restrict__ yt0,
+    const float* __restrict__ yt1, int64_t m_pad, int64_t nw, int64_t kb,
     YtgSmem<NOps>& s, float (&acc)[NOps][YT_RPT][YT_PPT]) {
   const int wl = threadIdx.x & 15;
   const int pg = (threadIdx.x >> 4) & 3;
@@ -498,11 +877,11 @@ __device__ __forceinline__ void ytg_mainloop(
     }
 #pragma unroll
     for (int k = 0; k < NOps; ++k) {
-      const T* __restrict__ yt = k == 0 ? yt0 : yt1;
+      const float* __restrict__ yt = k == 0 ? yt0 : yt1;
       for (int e = threadIdx.x; e < YT_ROWS * YT_MC; e += YT_THREADS) {
         const int r = e / YT_MC, mm = e % YT_MC;
         const int q = s.rows[r];
-        s.y[k][mm][r] = q >= 0 ? to_f32(yt[q * m_pad + m0 + mm]) : 0.0f;
+        s.y[k][mm][r] = q >= 0 ? yt[q * m_pad + m0 + mm] : 0.0f;
       }
     }
     __syncthreads();
@@ -534,15 +913,14 @@ __device__ __forceinline__ void ytg_mainloop(
 // Column of this thread's word, plane 4*pg + 0 (add pp * 128 per plane).
 __device__ __forceinline__ int64_t ytg_col0(int64_t kb) {
   const int wl = threadIdx.x & 15, pg = (threadIdx.x >> 4) & 3;
-  return (kb / kTileWords) * kTileN + kb % kTileWords + wl
-         + (int64_t)(4 * pg) * kTileWords;
+  return word_col(kb + wl) + (int64_t)(4 * pg) * kTileWords;
 }
 
-// ------------------------------------------------------------------ ytg
-template <bool Square, typename T>
+template <bool Square>
 __global__ void __launch_bounds__(YT_THREADS)
-ytg_kernel(const uint32_t* __restrict__ words, const T* __restrict__ yt,
-           float* __restrict__ out, int64_t m_pad, int64_t nw, int qr) {
+ytg_fma_kernel(const uint32_t* __restrict__ words,
+               const float* __restrict__ yt, float* __restrict__ out,
+               int64_t m_pad, int64_t nw, int qr) {
   __shared__ __align__(16) YtgSmem<1> s;
   const int64_t kb = (int64_t)blockIdx.x * YT_WORDS;
   const int q0 = blockIdx.y * YT_ROWS;
@@ -551,7 +929,7 @@ ytg_kernel(const uint32_t* __restrict__ words, const T* __restrict__ yt,
     s.rows[threadIdx.x] = q < qr ? q : -1;
   }
   float acc[1][YT_RPT][YT_PPT];
-  ytg_mainloop<Square>(words, yt, yt, m_pad, nw, kb, s, acc);
+  ytg_fma_mainloop<Square>(words, yt, yt, m_pad, nw, kb, s, acc);
 
   const int qg = threadIdx.x >> 6;
   const int64_t n_pad = nw * kPlanes, col0 = ytg_col0(kb);
@@ -565,18 +943,6 @@ ytg_kernel(const uint32_t* __restrict__ words, const T* __restrict__ yt,
   }
 }
 
-// ------------------------------------------------------ ytg_acc, ytg_acc2
-// Same tile geometry and main loop as ytg_kernel. NOps = 1 (ytg_acc): one
-// operand against g, epilogue with the per-individual scale. NOps = 2
-// (ytg_acc2, dominance): Yt1 against g and Yt2 against g² over the same
-// staged words, two accumulator sets, no scale. Split: a tile's 32 Yt rows
-// are 16 output rows' hi AND lo halves, interleaved so each thread holds
-// both halves of its 4 output rows (tile rows i < 4 hi, i >= 4 lo), for
-// both operands alike; unsplit: 32 output rows. Epilogue in round-to-
-// nearest intrinsics, never contracted into FMAs, in the order of the
-// materializing path's separate tensor ops (bitwise):
-//   NOps = 1: (hi + lo), - rank1, * scale, * mask, then tot +
-//   NOps = 2: ((hi1 + lo1) + (hi2 + lo2)), - rank1, * mask, then tot +
 template <int NOps>
 __device__ __forceinline__ void acc_store(float a0, float a1, int oq,
                                           int64_t n,
@@ -585,19 +951,24 @@ __device__ __forceinline__ void acc_store(float a0, float a1, int oq,
                                           const float* __restrict__ mask,
                                           float* __restrict__ tot,
                                           int64_t n_pad) {
-  float v = __fsub_rn(NOps == 2 ? __fadd_rn(a0, a1) : a0, rank1[oq]);
-  if (NOps == 1) v = __fmul_rn(v, scale[n]);
-  v = __fmul_rn(v, mask[n]);
-  tot[oq * n_pad + n] = __fadd_rn(tot[oq * n_pad + n], v);
+  float& t = tot[oq * n_pad + n];
+  t = acc_value<NOps>(a0, a1, rank1[oq], NOps == 1 ? scale[n] : 1.0f,
+                      mask[n], t);
 }
 
-template <int NOps, typename T>
+// Split: a tile's 32 Yt rows are 16 output rows' hi AND lo halves,
+// interleaved so each thread holds both halves of its 4 output rows (tile
+// rows i < 4 hi, i >= 4 lo), for both operands alike; unsplit: 32 output
+// rows.
+template <int NOps>
 __global__ void __launch_bounds__(YT_THREADS)
-ytg_acc_kernel(const uint32_t* __restrict__ words, const T* __restrict__ yt0,
-               const T* __restrict__ yt1, const float* __restrict__ rank1,
-               const float* __restrict__ scale,
-               const float* __restrict__ mask, float* __restrict__ tot,
-               int64_t m_pad, int64_t nw, int q, int split) {
+ytg_acc_fma_kernel(const uint32_t* __restrict__ words,
+                   const float* __restrict__ yt0,
+                   const float* __restrict__ yt1,
+                   const float* __restrict__ rank1,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ mask, float* __restrict__ tot,
+                   int64_t m_pad, int64_t nw, int q, int split) {
   __shared__ __align__(16) YtgSmem<NOps> s;
   const int64_t kb = (int64_t)blockIdx.x * YT_WORDS;
   const int q0 = blockIdx.y * (split ? YT_ROWS / 2 : YT_ROWS);
@@ -614,7 +985,7 @@ ytg_acc_kernel(const uint32_t* __restrict__ words, const T* __restrict__ yt0,
     s.rows[r] = oq < q ? yrow : -1;
   }
   float acc[NOps][YT_RPT][YT_PPT];
-  ytg_mainloop<false>(words, yt0, yt1, m_pad, nw, kb, s, acc);
+  ytg_fma_mainloop<false>(words, yt0, yt1, m_pad, nw, kb, s, acc);
 
   const int qg = threadIdx.x >> 6;
   const int64_t n_pad = nw * kPlanes, col0 = ytg_col0(kb);
@@ -682,30 +1053,75 @@ int gp_mma(const uint32_t* w, const void* c, float* part, float* out,
   }
 }
 
-template <typename T>
-int ytg_launch(const uint32_t* w, const void* yt, int square, float* out,
-               int64_t m_pad, int64_t nw, int qr, cudaStream_t st) {
-  const dim3 grid((unsigned)(nw / YT_WORDS),
-                  (unsigned)((qr + YT_ROWS - 1) / YT_ROWS));
-  const T* y = static_cast<const T*>(yt);
-  if (square)
-    ytg_kernel<true><<<grid, YT_THREADS, 0, st>>>(w, y, out, m_pad, nw, qr);
-  else
-    ytg_kernel<false><<<grid, YT_THREADS, 0, st>>>(w, y, out, m_pad, nw, qr);
+// bf16 Yt: one launch of ytg_kernel, 64 Yt rows x YTG_MT*YTG_NT words a
+// block.
+template <bool Square>
+int ytg_mma_launch(const uint32_t* w, const void* yt, float* out,
+                   int64_t m_pad, int64_t nw, int qr, cudaStream_t st) {
+  constexpr int smem = YM_STAGES * ym_stage_bytes<1>();
+  auto* kern = ytg_kernel<Square, YTG_MT, YTG_NT>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((qr + YM_ROWS - 1) / YM_ROWS),
+                  (unsigned)(nw / (YTG_MT * YTG_NT)));
+  kern<<<grid, YM_THREADS, smem, st>>>(
+      w, static_cast<const __nv_bfloat16*>(yt), out, m_pad, nw, qr);
   return (int)cudaGetLastError();
 }
 
-template <int NOps, typename T>
-int acc_launch(const void* words, const void* yt0, const void* yt1,
-               const void* rank1, const void* scale, const void* mask,
-               void* tot, int64_t m_pad, int64_t nw, int q, int split,
-               void* stream) {
+// bf16 Yt: one launch of ytg_acc_kernel<NOps>, 32 (split) or 64 output
+// rows x MT*NT words a block.
+template <int NOps>
+int acc_mma_launch(const void* words, const void* yt0, const void* yt1,
+                   const void* rank1, const void* scale, const void* mask,
+                   void* tot, int64_t m_pad, int64_t nw, int q, int split,
+                   cudaStream_t st) {
+  constexpr int MT = NOps == 1 ? ACC_MT : ACC2_MT;
+  constexpr int NT = NOps == 1 ? ACC_NT : ACC2_NT;
+  constexpr int smem = YM_STAGES * ym_stage_bytes<NOps>();
+  auto* kern = ytg_acc_kernel<NOps, MT, NT>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = split ? YM_ROWS / 2 : YM_ROWS;
+  const dim3 grid((unsigned)((q + rows - 1) / rows),
+                  (unsigned)(nw / (MT * NT)));
+  kern<<<grid, YM_THREADS, smem, st>>>(
+      static_cast<const uint32_t*>(words),
+      static_cast<const __nv_bfloat16*>(yt0),
+      static_cast<const __nv_bfloat16*>(yt1),
+      static_cast<const float*>(rank1), static_cast<const float*>(scale),
+      static_cast<const float*>(mask), static_cast<float*>(tot), m_pad, nw,
+      q, split);
+  return (int)cudaGetLastError();
+}
+
+// f32 Yt: the CUDA-core FMA kernels.
+int ytg_fma_launch(const uint32_t* w, const void* yt, int square, float* out,
+                   int64_t m_pad, int64_t nw, int qr, cudaStream_t st) {
+  const dim3 grid((unsigned)(nw / YT_WORDS),
+                  (unsigned)((qr + YT_ROWS - 1) / YT_ROWS));
+  const float* y = static_cast<const float*>(yt);
+  if (square)
+    ytg_fma_kernel<true><<<grid, YT_THREADS, 0, st>>>(w, y, out, m_pad, nw,
+                                                      qr);
+  else
+    ytg_fma_kernel<false><<<grid, YT_THREADS, 0, st>>>(w, y, out, m_pad, nw,
+                                                       qr);
+  return (int)cudaGetLastError();
+}
+
+template <int NOps>
+int acc_fma_launch(const void* words, const void* yt0, const void* yt1,
+                   const void* rank1, const void* scale, const void* mask,
+                   void* tot, int64_t m_pad, int64_t nw, int q, int split,
+                   cudaStream_t st) {
   const int rows = split ? YT_ROWS / 2 : YT_ROWS;
   const dim3 grid((unsigned)(nw / YT_WORDS), (unsigned)((q + rows - 1) / rows));
-  ytg_acc_kernel<NOps><<<grid, YT_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const T*>(yt0),
-      static_cast<const T*>(yt1), static_cast<const float*>(rank1),
+  ytg_acc_fma_kernel<NOps><<<grid, YT_THREADS, 0, st>>>(
+      static_cast<const uint32_t*>(words), static_cast<const float*>(yt0),
+      static_cast<const float*>(yt1), static_cast<const float*>(rank1),
       static_cast<const float*>(scale), static_cast<const float*>(mask),
       static_cast<float*>(tot), m_pad, nw, q, split);
   return (int)cudaGetLastError();
@@ -743,30 +1159,33 @@ int rhe_ytg(const void* words, const void* yt, int yt_bf16, int square,
   const auto* w = static_cast<const uint32_t*>(words);
   auto* o = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return yt_bf16
-      ? ytg_launch<__nv_bfloat16>(w, yt, square, o, m_pad, nw, qr, st)
-      : ytg_launch<float>(w, yt, square, o, m_pad, nw, qr, st);
+  if (yt_bf16)
+    return square ? ytg_mma_launch<true>(w, yt, o, m_pad, nw, qr, st)
+                  : ytg_mma_launch<false>(w, yt, o, m_pad, nw, qr, st);
+  return ytg_fma_launch(w, yt, square, o, m_pad, nw, qr, st);
 }
 
 int rhe_ytg_acc(const void* words, const void* yt, int yt_bf16,
                 const void* rank1, const void* scale, const void* mask,
                 void* tot, int64_t m_pad, int64_t nw, int q, int split,
                 void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return yt_bf16
-      ? acc_launch<1, __nv_bfloat16>(words, yt, yt, rank1, scale, mask, tot,
-                                     m_pad, nw, q, split, stream)
-      : acc_launch<1, float>(words, yt, yt, rank1, scale, mask, tot, m_pad,
-                             nw, q, split, stream);
+      ? acc_mma_launch<1>(words, yt, yt, rank1, scale, mask, tot, m_pad, nw,
+                          q, split, st)
+      : acc_fma_launch<1>(words, yt, yt, rank1, scale, mask, tot, m_pad, nw,
+                          q, split, st);
 }
 
 int rhe_ytg_acc2(const void* words, const void* yt1, const void* yt2,
                  int yt_bf16, const void* rank1, const void* mask, void* tot,
                  int64_t m_pad, int64_t nw, int q, int split, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return yt_bf16
-      ? acc_launch<2, __nv_bfloat16>(words, yt1, yt2, rank1, nullptr, mask,
-                                     tot, m_pad, nw, q, split, stream)
-      : acc_launch<2, float>(words, yt1, yt2, rank1, nullptr, mask, tot,
-                             m_pad, nw, q, split, stream);
+      ? acc_mma_launch<2>(words, yt1, yt2, rank1, nullptr, mask, tot, m_pad,
+                          nw, q, split, st)
+      : acc_fma_launch<2>(words, yt1, yt2, rank1, nullptr, mask, tot, m_pad,
+                          nw, q, split, st);
 }
 
 }  // extern "C"

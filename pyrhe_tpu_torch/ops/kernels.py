@@ -31,8 +31,9 @@ reads `fill`, decode is always clean and word-wise, and `planewise` was an
 MXU tiling choice with no counterpart here. The operand dtype (float32, or
 bfloat16 for the split2 hi/lo halves) is the tensor's own; products of a
 bf16 operand and a dosage are exact in f32, so the plain versions upcast
-before multiplying and every kernel accumulates in f32 (gp on the bf16
-tensor cores, the others in f32 FMAs).
+before multiplying and every kernel accumulates in f32: bf16 operands on
+the tensor cores (gp and the ytg family), f32 operands in f32 FMAs on the
+CUDA cores (the tensor cores would round them to TF32).
 """
 from __future__ import annotations
 
@@ -286,14 +287,18 @@ def ytg_matmul(words: torch.Tensor, Yt: torch.Tensor,
     halves stacked on rows when split; returns (Qr, n_pad) f32 in plane
     order.
 
-    Bound on the H100: f32 FMAs on the CUDA cores (2·Qr·m·N flops, Qr up
-    to 320) plus the in-register decode; the output write (4·Qr·N bytes)
-    is small beside them. Design: one block per 256 decoded columns x 32
-    Yt rows with the loop over SNP rows inside the block; each thread
-    decodes one word per SNP row and spends it on 8 rows x 4 planes of
-    FMAs, reading its 8 Yt values as two broadcast 16-byte loads from a
-    transposed shared-memory tile. The main loop is shared with
-    ytg_acc_matmul and ytg_acc2_matmul, so they agree bitwise."""
+    Bound on the H100: operations, 2·Qr·m·N flops on the bf16 tensor
+    cores (66.5 µs at Qr 320, m 1024, N 100352); the words and the f32
+    output (4·Qr·N bytes) take somewhat less. Design for bf16 Yt:
+    mma.sync m16n8k16 with A = Yt rows and B = dosages (n = 8 consecutive
+    words at one plane); a block of 8 warps takes 64 Yt rows x 16 words
+    (256 output columns) and loops over all SNP rows in increasing order,
+    staging 64 SNP rows of words and Yt at a time with cp.async in a
+    4-stage ring; per 16 SNP rows each thread decodes 4 words once and
+    forms the bf16 operands of its 4 planes, each feeding 4 m16 tiles.
+    No split-K and no atomics. f32 Yt takes an FMA loop on the CUDA
+    cores. Both main loops are shared with ytg_acc_matmul and
+    ytg_acc2_matmul, so they agree bitwise."""
     _check_words(words)
     _check_operand(Yt, "Yt", words)
     m_pad, nw = words.shape
@@ -326,10 +331,12 @@ def ytg_acc_matmul(words: torch.Tensor, Yt: torch.Tensor,
     Yt: (2Q, m_pad) hi/lo-stacked when split else (Q, m_pad); rank1:
     (Q, 1) f32; scale, mask: (1, n_pad) f32; tot: (Q, n_pad) f32.
 
-    Bound on the H100: as ytg_matmul, plus one read-modify-write of the
-    totals (8·Q·N bytes). Design: the ytg main loop and launch geometry,
-    with each tile's hi and lo rows interleaved so one thread holds both
-    halves of its output rows; the epilogue rounds each step on its own
+    Bound on the H100: as ytg_matmul (operations on the bf16 tensor
+    cores), plus one read-modify-write of the totals (8·Q·N bytes).
+    Design: the ytg main loop, with a row map that puts the hi and lo rows
+    of one output row at rows r and r + 8 of one m16 tile, so one thread
+    holds both halves of its output rows; the epilogue rounds each step
+    on its own
     (no FMA contraction) in the order of the materializing path's tensor
     ops — (hi + lo) − rank1, × scale, × mask, then tot + — so the result is
     bitwise equal to ytg_matmul followed by that transform. Multiplying by
@@ -378,11 +385,13 @@ def ytg_acc2_matmul(words: torch.Tensor, Yt1: torch.Tensor,
     Yt1, Yt2: (2Q, m_pad) hi/lo-stacked when split else (Q, m_pad), of one
     dtype; rank1: (Q, 1) f32; mask: (1, n_pad) f32; tot: (Q, n_pad) f32.
 
-    Bound on the H100: as ytg_acc_matmul with twice the FMAs per decoded
-    word. Design: one launch of the ytg_acc tile reads and decodes each
-    word once and feeds two accumulator sets (Yt1·g and Yt2·g², Yt tiles
-    staged side by side in shared memory), each the same FMA chain over m
-    as the standalone ytg_matmul / square ytg_matmul launch for its row;
+    Bound on the H100: as ytg_acc_matmul with twice the flops per
+    decoded word (133 µs at phase-3 shapes). Design: one launch of the
+    ytg_acc main loop and row map reads and decodes each word once and
+    feeds two accumulator sets (Yt1·g and Yt2·g², Yt tiles staged side by
+    side in shared memory; 4 planes a warp, so 64 accumulators a thread
+    in all), each the same mma (or FMA) chain over m as the standalone
+    ytg_matmul / square ytg_matmul launch for its row;
     the epilogue rounds ((hi1 + lo1) + (hi2 + lo2)) − rank1, × mask, then
     tot + step by step, so the result is bitwise equal to two ytg_matmul
     calls followed by the materializing path's tensor ops."""

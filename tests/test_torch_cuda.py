@@ -137,6 +137,67 @@ def test_cuda_gp_split_k(cuda_device, operand, W, m, n):
                                    atol=2e-4 * ref.abs().max().item())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("operand", ["f32", "split", "bf16"])
+@pytest.mark.parametrize("m,n,Q", [
+    (20, 700, 7),             # m_pad 32 (two k16 steps), 14 split rows
+    (300, 2500, 40),          # several row and word tiles, ragged rows
+    (1000, 4096, 320),        # 640 split rows: RHE-DOM's g-side ytg
+])
+def test_cuda_ytg_family(cuda_device, square, operand, m, n, Q):
+    """ytg (ytg² when square) against the plain version; two launches
+    bitwise equal; the product (split: the two halves summed) against a
+    float64 one of the f32 Yt the operand came from; ytg_acc (square off)
+    or ytg_acc2 (square on) bitwise equal to ytg + the tensor transform."""
+    words, perm, m, n, m_pad, n_pad = make_block(m, n, seed=m + Q)
+    gen = torch.Generator(device=cuda_device).manual_seed(Q)
+    w = torch.from_numpy(words).to(cuda_device)
+    split = operand == "split"
+
+    def make_operand():
+        """(kernel operand, the f32 Yt it stands for)"""
+        Y32 = torch.randn(Q, m_pad, device=cuda_device, generator=gen)
+        Y32[:, m:] = 0.0
+        if operand == "bf16":
+            Y = Y32.to(torch.bfloat16)
+            return Y, Y.float()
+        return (_hilo(Y32, 0).contiguous() if split else Y32), Y32
+
+    Yop, Y32 = make_operand()
+    got = tk.ytg_matmul(w, Yop, square)
+    assert got.shape == (Yop.shape[0], n_pad)
+    assert torch.equal(got, tk.ytg_matmul(w, Yop, square))
+    assert_close(got, tk.ytg_plain(w, Yop, square))
+    ref = Y32.double() @ tk.decode_words(w, square).double()
+    # split2 keeps ~16 bits of Yt: |Y - hi - lo| <= 2^-17 |Y| per term;
+    # the f32 sums (FMA chain or tensor cores) add ~1e-6 of max |ref|
+    np.testing.assert_allclose(
+        tk.sum_halves(got, split).double().cpu().numpy(), ref.cpu().numpy(),
+        rtol=2e-4, atol=2e-4 * ref.abs().max().item())
+
+    rank1 = torch.randn(Q, 1, device=cuda_device, generator=gen)
+    mask = torch.tensor((perm < n)[None, :], dtype=torch.float32,
+                        device=cuda_device)
+    tot0 = torch.randn(Q, n_pad, device=cuda_device, generator=gen)
+    a = tk.sum_halves(tk.ytg_matmul(w, Yop), split)
+    if not square:
+        scale = torch.randn(1, n_pad, device=cuda_device, generator=gen)
+        out = tk.ytg_acc_matmul(w, Yop, rank1, scale, mask, tot0.clone(),
+                                split=split)
+        assert torch.equal(out, tot0 + ((a - rank1) * scale) * mask)
+        assert_close(out, tk.ytg_acc_plain(w, Yop, rank1, scale, mask,
+                                           tot0.clone(), split))
+    else:
+        Yop2, _ = make_operand()
+        out = tk.ytg_acc2_matmul(w, Yop, Yop2, rank1, mask, tot0.clone(),
+                                 split=split)
+        a2 = tk.sum_halves(tk.ytg_matmul(w, Yop2, square=True), split)
+        assert torch.equal(out, tot0 + ((a + a2) - rank1) * mask)
+        assert_close(out, tk.ytg_acc2_plain(w, Yop, Yop2, rank1, mask,
+                                            tot0.clone(), split))
+
+
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
     from pyrhe_tpu_torch.io import synth
