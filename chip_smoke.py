@@ -26,23 +26,33 @@ non-zero without printing a result:
    the operand type (989 TF/s bf16 on the tensor cores, 67 TF/s f32),
    H100 SXM at 700 W. gp is timed
    again on a C built as the main path builds it (mask column + probes,
-   ops/moments._stage1_cols), ytg and ytg² at RHE-DOM's 640 split rows
-   (the g-side columns of both components);
-4. the two main paths at a biobank cohort's size, on one synthesized
+   ops/moments._stage1_cols; `ms_main_path_c`) and on GENIE's (mask
+   column + three env variants of the probes, 128 split columns;
+   `ms_genie_c`), ytg and ytg² at RHE-DOM's 640 split rows (the g-side
+   columns of both components; `ms_main_path_rows`), ytg at GENIE's 960
+   (`ms_genie_rows`), and ytg_acc with a 0/1 environment row as its scale
+   (checked bitwise against ytg + transform; `ms_env_scale`);
+4. the three main paths at a biobank cohort's size, on one synthesized
    cohort (pyrhe_tpu_torch/cohort.py, which profile_run shares):
    N = 100,000 individuals x M = 100,000 SNPs (a 2.5 GB .bed), 8 bins,
-   4 covariates, J = 100, B = 10. Each path (RHE: RHE(...) and
-   StreamingRHE(...); RHE-DOM: RHE_DOM(...) and StreamingRHE_DOM(...)) runs
-   cached and streaming with the launch counts set to 0 just before and
-   read just after, then through the CLI with --streaming; per path:
-   the cached run kept its stats cache (12.8 GB for RHE-DOM), cached ==
-   streaming bitwise, total h2 within 3 SE of the simulated truth (the
-   cohort has no dominance effect), every kernel of the path launched,
-   the CLI's sigma^2 equal to the streaming model's;
-5. cross-check on the example dataset (N = 5000, M = 10000): RHE (1 bin)
-   and RHE-DOM (8 bins) on the card (bf16 split2) against the port on the
-   CPU (f32), the reference implementation's published RHE run and both
-   RHE-DOM golden outputs in example/outputs.
+   4 covariates, 2 environments, J = 100, B = 10. Each path (RHE: RHE(...)
+   and StreamingRHE(...); RHE-DOM: RHE_DOM(...) and StreamingRHE_DOM(...);
+   GENIE G+GxE+NxE: GENIE(...) and StreamingGENIE(...)) runs cached and
+   streaming with the launch counts set to 0 just before and read just
+   after, then through the CLI with --streaming; per path: the cached run
+   kept its stats cache (12.8 GB for RHE-DOM, 19.3 GB for GENIE), cached
+   == streaming bitwise, every sigma^2, SE and h2 finite, total h2 within
+   3 SE of the simulated truth (the cohort has no dominance, GxE or NxE
+   effect: GENIE's total h2_gxe within 3 SE of 0), every kernel of the
+   path launched, the CLI's sigma^2 equal to the streaming model's;
+5. cross-check on the example dataset (N = 5000, M = 10000): RHE (1 bin),
+   RHE-DOM (8 bins) and GENIE G+GxE+NxE (8 bins, one environment) on the
+   card (bf16 split2) against the port on the CPU (f32), the reference
+   implementation's published RHE run and the RHE-DOM and GENIE golden
+   outputs in example/outputs; then GENIE's CLI with --trace on the card,
+   whose .MN must equal the reference implementation's byte for byte and
+   whose .tr must match it within tests/test_golden_example.py's
+   tolerances.
 
 The last two lines are a JSON object of per-kernel results and the
 {"ok": true, "device": ...} line.
@@ -51,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +75,7 @@ sys.path.insert(0, ROOT)
 
 # Phase-3 shapes: one jackknife block of the phase-4 runs.
 M_PAD, N_PAD, W, QR = 1024, 100352, 22, 320
+GENIE_COMPS = (("add", None), ("add", 0), ("add", 1))   # G + 2 GxE
 RTOL = 1e-4                      # f32 summation order over ~1e5 / ~1e3 terms
 # Reference implementation's run on the example dataset (values and SEs),
 # as in tests/test_golden_example.py REFERENCE_RUN.
@@ -253,6 +265,23 @@ def phase_kernels():
         log(f"[3 kernels] {name} on the main path's C {tuple(C_main.shape)}"
             f" {C_main.dtype}: max abs err vs plain {err:.3e}; kernel "
             f"{ms:.4f} ms")
+    # gp on GENIE's C: the mask column and the probes scaled by each env
+    # variant (1 + 21 x 3 = 64 columns, 128 split)
+    env = (torch.rand(N_PAD, 2, device=dev, generator=gen) < 0.5).float()
+    env = env * mask_col
+    _, C_genie = _stage1_cols(GENIE_COMPS, P, env, mask_col)
+    C_genie = _hilo(C_genie, 1).contiguous()
+    err = _close("gp_matmul GENIE C", K.gp_matmul(words, C_genie),
+                 K.gp_plain(words, C_genie))
+    ms = _median_ms(lambda: K.gp_matmul(words, C_genie))
+    res["gp_matmul"]["ms_genie_c"] = ms
+    bound_ms, by = _bound(words_b + _nbytes(C_genie) + M_PAD * C_genie.shape[1]
+                          * 4, 2 * M_PAD * N_PAD * C_genie.shape[1],
+                          C_genie.dtype)
+    log(f"[3 kernels] gp_matmul on GENIE's C {tuple(C_genie.shape)} "
+        f"{C_genie.dtype}: max abs err vs plain {err:.3e}; kernel "
+        f"{ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({by}, "
+        f"{100 * bound_ms / ms:.2f} % of it)")
 
     # RHE-DOM's stage 2 over g on the main path: both components' g-side
     # columns, 2 x 160 output rows, 640 split rows
@@ -294,12 +323,27 @@ def phase_kernels():
         res[name]["ms_main_path_rows"] = ms
         log(f"[3 kernels] {name} at the RHE-DOM main path's "
             f"{Y640.shape[0]} split rows: kernel {ms:.4f} ms")
+    # GENIE's stage 2 over g: G and two GxE components, 3 x 160 rows
+    Y960 = torch.randn(3 * Q, M_PAD, device=dev, generator=gen)
+    Y960[:, 1000:] = 0.0
+    Y960 = _hilo(Y960, 0).contiguous()
+    err = _close(f"ytg_matmul Yt {tuple(Y960.shape)}",
+                 K.ytg_matmul(words, Y960), K.ytg_plain(words, Y960))
+    ms = _median_ms(lambda: K.ytg_matmul(words, Y960))
+    res["ytg_matmul"]["ms_genie_rows"] = ms
+    bound_ms, by = _bound(words_b + _nbytes(Y960) + Y960.shape[0] * N_PAD * 4,
+                          2 * Y960.shape[0] * M_PAD * N_PAD, Y960.dtype)
+    log(f"[3 kernels] ytg_matmul at the GENIE main path's {Y960.shape[0]} "
+        f"split rows: max abs err vs plain {err:.3e}; kernel {ms:.4f} ms, "
+        f"bound {bound_ms * 1e3:.1f} us ({by}, {100 * bound_ms / ms:.2f} % "
+        "of it)")
 
     mask = (torch.rand(1, N_PAD, device=dev, generator=gen) < 0.9).float()
+    env_row = env[:, 0][None, :].contiguous()    # a GxE component's scale
     for split, Yop in ((False, Yt[:Q].contiguous()), (True, Yh)):
         rank1 = torch.randn(Q, 1, device=dev, generator=gen)
         err = 0.0
-        for scale in (torch.ones(1, N_PAD, device=dev),
+        for scale in (env_row, torch.ones(1, N_PAD, device=dev),
                       torch.randn(1, N_PAD, device=dev, generator=gen)):
             tot0 = torch.randn(Q, N_PAD, device=dev, generator=gen)
             got = K.ytg_acc_matmul(words, Yop, rank1, scale, mask,
@@ -328,8 +372,14 @@ def phase_kernels():
                       words_b + _nbytes(Yop, rank1, scale, mask, tot, tot),
                       2 * Yop.shape[0] * M_PAD * N_PAD, Yop.dtype)
         log(f"[3 kernels] ytg_acc_matmul split={split} Yt "
-            f"{tuple(Yop.shape)} {Yop.dtype}: bitwise == ytg + transform; "
-            f"max abs err vs plain {err:.3e}; {line}")
+            f"{tuple(Yop.shape)} {Yop.dtype}: bitwise == ytg + transform "
+            f"(scales: env row, ones, random); max abs err vs plain "
+            f"{err:.3e}; {line}")
+    ms = _median_ms(lambda: K.ytg_acc_matmul(
+        words, Yh, rank1, env_row, mask, tot, split=True))
+    res["ytg_acc_matmul"]["ms_env_scale"] = ms
+    log(f"[3 kernels] ytg_acc_matmul split=True with a 0/1 env row as "
+        f"scale: kernel {ms:.4f} ms")
 
     Yt2 = torch.randn(Q, M_PAD, device=dev, generator=gen)
     Yt2[:, 1000:] = 0.0
@@ -380,12 +430,12 @@ def _make_cohort(d):
     return prefix
 
 
-def _run_model(cls, prefix):
+def _run_model(cls, prefix, **kw):
     import torch
     from pyrhe_tpu_torch import cohort
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = cohort.model(cls, prefix)
+    model = cohort.model(cls, prefix, **kw)
     t_load = time.perf_counter() - t0
     t1 = time.perf_counter()
     res = model(trait=0)
@@ -402,9 +452,11 @@ def _fmt_phases(pt):
     return ", ".join(f"{k} {v:.3f}" for k, v in pt.items())
 
 
-def _drive_path(prefix, label, model, cls_c, cls_s, kernels):
+def _drive_path(prefix, label, model, cls_c, cls_s, kernels, kw, checks):
     """One main path, cached and streaming, with the launch counts set to
-    0 just before and read just after; then its CLI --streaming run.
+    0 just before and read just after; then its CLI --streaming run. kw:
+    the models' extra arguments; checks: (name, index into h2_total,
+    simulated truth) of each heritability held within 3 SE of its truth.
     Returns the launch counts."""
     import torch
     from pyrhe_tpu_torch import cohort
@@ -412,8 +464,8 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels):
     from parse_output import parse_output_file
 
     K.reset_launch_counts()
-    cached, res_c, pt_c = _run_model(cls_c, prefix)
-    streaming, res_s, pt_s = _run_model(cls_s, prefix)
+    cached, res_c, pt_c = _run_model(cls_c, prefix, **kw)
+    streaming, res_s, pt_s = _run_model(cls_s, prefix, **kw)
     launches = dict(K.launches)
     tag = f"[4 main {label}]"
     if cached.engine.cfg.streaming:
@@ -433,13 +485,14 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels):
     for key in ("sigma_ests_total", "sig_errs", "h2_total", "h2_errs"):
         if not np.all(np.isfinite(res_c[key])):
             raise AssertionError(f"{label}: non-finite {key}: {res_c[key]}")
-    h2, se = float(res_c["h2_total"][-1]), float(res_c["h2_errs"][-1])
-    truth = sum(cohort.SIGMA)
-    log(f"{tag} total h2 {h2:.5f} SE {se:.5f}, simulated truth {truth}; "
-        f"cached == streaming bitwise (T_all, q_all)")
-    if abs(h2 - truth) > 3 * se:
-        raise AssertionError(f"{label}: total h2 {h2} is more than 3 SE "
-                             f"from {truth}")
+    log(f"{tag} cached == streaming bitwise (T_all, q_all); E = "
+        f"{cached.engine.E} estimates")
+    for name, i, truth in checks:
+        h2, se = float(res_c["h2_total"][i]), float(res_c["h2_errs"][i])
+        log(f"{tag} {name} {h2:.5f} SE {se:.5f}, simulated truth {truth}")
+        if abs(h2 - truth) > 3 * se:
+            raise AssertionError(f"{label}: {name} {h2} is more than 3 SE "
+                                 f"from {truth}")
     del cached, streaming
     torch.cuda.empty_cache()
 
@@ -447,10 +500,11 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels):
     t0 = time.perf_counter()
     subprocess.run(
         [sys.executable, "-m", "pyrhe_tpu_torch.cli", "--model", model,
-         *cohort.cli_args(prefix), "--streaming", "-o", out, "--suppress"],
-        check=True, cwd=ROOT)
+         *cohort.cli_args(prefix, **kw), "--streaming", "-o", out,
+         "--suppress"], check=True, cwd=ROOT)
     got = parse_output_file(out)
-    cli_sigma = [g["value"] for g in got["sigma2_g"]] + [
+    cli_sigma = [g["value"] for key in ("sigma2_g", "sigma2_gxe",
+                                        "sigma2_nxe") for g in got[key]] + [
         got["sigma2_e"]["value"]]
     if cli_sigma != [float(v) for v in res_s["sigma_ests_total"]]:
         raise AssertionError(f"{label}: CLI sigma {cli_sigma} != "
@@ -463,17 +517,25 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels):
 
 
 def phase_main(d):
-    """Both main paths on one synthesized cohort; returns each kernel's
-    launches summed over the paths' runs."""
-    from pyrhe_tpu_torch import RHE, RHE_DOM, StreamingRHE, StreamingRHE_DOM
+    """The three main paths on one synthesized cohort; returns each
+    kernel's launches summed over the paths' runs."""
+    from pyrhe_tpu_torch import (GENIE, RHE, RHE_DOM, StreamingGENIE,
+                                 StreamingRHE, StreamingRHE_DOM, cohort)
     from pyrhe_tpu_torch.ops import kernels as K
     prefix = _make_cohort(d)
     total = dict.fromkeys(K.KERNELS, 0)
-    # (label, --model, cached class, streaming class, kernels it launches)
-    for path in (("RHE", "rhe", RHE, StreamingRHE,
-                  ("gp_matmul", "ytg_matmul", "ytg_acc_matmul")),
+    additive = ("gp_matmul", "ytg_matmul", "ytg_acc_matmul")
+    truth = sum(cohort.SIGMA)
+    total_h2 = [("total h2", -1, truth)]
+    # GENIE's h2_total ends [total h2, total h2_g, total h2_gxe]
+    genie_h2 = [("total h2", -3, truth), ("total h2_gxe", -1, 0.0)]
+    # (label, --model, cached class, streaming class, kernels it launches,
+    #  extra model arguments, heritability checks)
+    for path in (("RHE", "rhe", RHE, StreamingRHE, additive, {}, total_h2),
                  ("RHE-DOM", "rhe_dom", RHE_DOM, StreamingRHE_DOM,
-                  K.KERNELS)):
+                  K.KERNELS, {}, total_h2),
+                 ("GENIE", "genie", GENIE, StreamingGENIE, additive,
+                  cohort.genie_kw(prefix), genie_h2)):
         for name, n in _drive_path(prefix, *path).items():
             total[name] += n
     return total
@@ -497,44 +559,71 @@ def _example(d):
     return os.path.join(d, "test")
 
 
-def _example_runs(cls, prefix, annot):
-    """{device: report} of one model on the example dataset (the example
-    configs' settings), on the card and on the CPU."""
+def _example_runs(cls, prefix, annot, **kw):
+    """({device: report}, {device: report text}) of one model on the
+    example dataset (the example configs' settings; kw overrides them), on
+    the card and on the CPU."""
     from pyrhe_tpu_torch import Logger
-    out = {}
+    out, text = {}, {}
     for device in ("cuda", "cpu"):
+        args = dict(dict(num_jack=100, num_random_vec=10, seed=42), **kw)
         model = cls(geno_file=prefix, annot_file=annot,
                     pheno_file=prefix + ".pheno", cov_file=prefix + ".cov",
-                    num_jack=100, num_random_vec=10, seed=42, device=device,
-                    log=Logger(suppress=True, debug_mode=False))
+                    device=device, log=Logger(suppress=True,
+                                              debug_mode=False), **args)
         out[device] = model(trait=0)
-    return out
+        text[device] = "".join(model.log.msgs)
+    return out, text
 
 
-def _check_golden(label, r, golden_path):
-    """Every sigma^2 and h2 within SE overlap of a golden output file."""
-    from parse_output import parse_output_file
-    g = parse_output_file(golden_path)
-    ests = [(f"sigma2_g{i}", x) for i, x in enumerate(g["sigma2_g"])] + [
-        ("sigma2_e", g["sigma2_e"])] + [
-        (f"h2_g{i}", x) for i, x in enumerate(g["h2_g"])] + [
-        ("total_h2", g["total_h2"])]
-    ours = list(zip(r["sigma_ests_total"], r["sig_errs"])) + list(
-        zip(r["h2_total"], r["h2_errs"]))
-    if len(ours) != len(ests):
-        raise AssertionError(f"{label}: {len(ours)} estimates vs "
-                             f"{len(ests)} in {golden_path}")
-    for (key, gv), (v, se) in zip(ests, ours):
-        if abs(v - gv["value"]) > se + gv["se"]:
-            raise AssertionError(
-                f"{label} {key} = {v} (SE {se}) outside SE overlap with "
-                f"{gv['value']} (SE {gv['se']}) of {golden_path}")
+def _check_envelope(label, out):
+    """sigma^2 on the card within the split2 envelope of the CPU run's.
+    Returns (max gap, atol)."""
+    s_gpu = np.asarray(out["cuda"]["sigma_ests_total"])
+    s_cpu = np.asarray(out["cpu"]["sigma_ests_total"])
+    atol = SPLIT2_RTOL * np.abs(s_cpu).max()
+    gap = np.abs(s_gpu - s_cpu)
+    if not np.all(gap <= atol + SPLIT2_RTOL * np.abs(s_cpu)):
+        raise AssertionError(f"{label} sigma cuda {s_gpu} vs cpu {s_cpu} "
+                             f"outside the split2 envelope (rtol "
+                             f"{SPLIT2_RTOL}, atol {atol:.3e})")
+    return gap.max(), atol
+
+
+# One estimate line of a report: Sigma^2_g/gxe/nxe/e, h2_g/gxe/nxe, Total
+# h2 (and _g, _gxe), Enrichment g, each with its SE (RHE-DOM writes
+# "h2_g[i] : value : SE").
+ESTIMATE = re.compile(r"^(Sigma\^2_\w+(?:\[\d+\])?|h2_\w+\[\d+\]|Total h2\w*|"
+                      r"Enrichment g\[\d+\]) : ([-\d.e]+) +(?:SE ?)?: ?"
+                      r"([\d.e-]+)$", re.M)
+
+
+def _estimates(text):
+    """{name: (value, SE)} of every estimate line of a report's text."""
+    return {name: (float(v), float(se))
+            for name, v, se in ESTIMATE.findall(text)}
+
+
+def _check_report_overlap(label, ours, path):
+    """The same estimate names as the report at path, each within SE
+    overlap of it."""
+    with open(path) as f:
+        gold = _estimates(f.read())
+    if sorted(ours) != sorted(gold):
+        raise AssertionError(f"{label}: estimates {sorted(ours)} vs "
+                             f"{sorted(gold)} in {path}")
+    for name, (v, se) in ours.items():
+        gv, gse = gold[name]
+        if abs(v - gv) > se + gse:
+            raise AssertionError(f"{label} {name} = {v} (SE {se}) outside "
+                                 f"SE overlap with {gv} (SE {gse}) of "
+                                 f"{path}")
 
 
 def phase_small(d):
     from pyrhe_tpu_torch import RHE, RHE_DOM
     prefix = _example(d)
-    out = _example_runs(RHE, prefix, os.path.join(d, "single.annot"))
+    out, _ = _example_runs(RHE, prefix, os.path.join(d, "single.annot"))
     vals = {}
     for device, r in out.items():
         vals[device] = {
@@ -555,25 +644,105 @@ def phase_small(d):
         f"{k} cuda {vals['cuda'][k][0]:.8f} cpu {vals['cpu'][k][0]:.8f} "
         f"ref {REFERENCE_RUN[k][0]:.8f}" for k in REFERENCE_RUN))
 
-    out = _example_runs(RHE_DOM, prefix, os.path.join(d, "multi.annot"))
-    s_gpu = np.asarray(out["cuda"]["sigma_ests_total"])
-    s_cpu = np.asarray(out["cpu"]["sigma_ests_total"])
-    atol = SPLIT2_RTOL * np.abs(s_cpu).max()
-    gap = np.abs(s_gpu - s_cpu)
-    if not np.all(gap <= atol + SPLIT2_RTOL * np.abs(s_cpu)):
-        raise AssertionError(f"RHE-DOM sigma cuda {s_gpu} vs cpu {s_cpu} "
-                             f"outside the split2 envelope (rtol "
-                             f"{SPLIT2_RTOL}, atol {atol:.3e})")
+    out, text = _example_runs(RHE_DOM, prefix,
+                              os.path.join(d, "multi.annot"))
+    gap, atol = _check_envelope("RHE-DOM", out)
+    s_gpu = out["cuda"]["sigma_ests_total"]
+    s_cpu = out["cpu"]["sigma_ests_total"]
     goldens = [os.path.join(ROOT, "example", "outputs", *sub,
                             "no_streaming_bin_8.txt")
                for sub in (("rhe_dom",), ("reference", "rhe_dom"))]
-    for device, r in out.items():
+    for device, t in text.items():
         for path in goldens:
-            _check_golden(f"RHE-DOM {device}", r, path)
+            _check_report_overlap(f"RHE-DOM {device}", _estimates(t), path)
     log(f"[5 small] RHE-DOM example, 8 bins: max |sigma cuda - cpu| "
-        f"{gap.max():.3e} (atol {atol:.3e}); sigma2_e cuda {s_gpu[-1]:.8f} "
+        f"{gap:.3e} (atol {atol:.3e}); sigma2_e cuda {s_gpu[-1]:.8f} "
         f"cpu {s_cpu[-1]:.8f}; both within SE overlap of "
         + " and ".join(os.path.relpath(p, ROOT) for p in goldens))
+    _small_genie(d, prefix)
+
+
+def _small_genie(d, prefix):
+    """GENIE G+GxE+NxE on the example with 8 bins, as
+    example/configs/genie/no_streaming_bin_8.txt sets it (B = 20, J = 100,
+    seed 42): card against CPU and both goldens; then that config through
+    the CLI on the card with --trace, against the reference's trace
+    files."""
+    from pyrhe_tpu_torch import GENIE
+    name = "no_streaming_bin_8"
+    out, text = _example_runs(GENIE, prefix, os.path.join(d, "multi.annot"),
+                              env_file=prefix + ".env",
+                              genie_model="G+GxE+NxE", num_random_vec=20)
+    gap, atol = _check_envelope("GENIE", out)
+    goldens = [os.path.join(ROOT, "example", "outputs", *sub, f"{name}.txt")
+               for sub in (("genie",), ("reference", "genie"))]
+    est = {device: _estimates(t) for device, t in text.items()}
+    for device in est:
+        for path in goldens:
+            _check_report_overlap(f"GENIE {device}", est[device], path)
+    log(f"[5 small] GENIE G+GxE+NxE example, 8 bins, {len(est['cuda'])} "
+        f"estimates: max |sigma cuda - cpu| {gap:.3e} (atol {atol:.3e}); "
+        f"Sigma^2_nxe[0] cuda {est['cuda']['Sigma^2_nxe[0]'][0]:.8f} cpu "
+        f"{est['cpu']['Sigma^2_nxe[0]'][0]:.8f}; both within SE overlap of "
+        + " and ".join(os.path.relpath(p, ROOT) for p in goldens))
+
+    with open(os.path.join(ROOT, "example", "configs", "genie",
+                           f"{name}.txt")) as f:
+        cfg_text = f.read()
+    report = os.path.join(d, "cli_genie_trace.txt")
+    cfg = os.path.join(d, "genie_trace.txt")
+    with open(cfg, "w") as f:
+        f.write(cfg_text.replace(f"output = outputs/genie/{name}.txt",
+                                 f"output = {report}")
+                .replace("trace = no", "trace = yes"))
+    tdir = os.path.join(d, "trace")
+    os.makedirs(tdir)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "pyrhe_tpu_torch.cli", "--config",
+                    cfg, "--trace_dir", tdir, "--device", "cuda",
+                    "--suppress"], check=True, cwd=d,
+                   env={**os.environ, "PYTHONPATH": ROOT})
+    with open(report) as f:
+        cli_est = _estimates(f.read())
+    if cli_est != est["cuda"]:
+        raise AssertionError("GENIE CLI --config on the card reports other "
+                             "estimates than GENIE(...) on the card")
+    ref_dir = os.path.join(ROOT, "example", "outputs", "reference", "trace",
+                           "genie", name)
+    _check_trace(tdir, ref_dir)
+    log(f"[5 small] GENIE CLI --config {name} --trace on the card: "
+        f"{time.perf_counter() - t0:.1f} s wall; estimates equal to "
+        f"GENIE(...)'s; .MN byte-identical to, .tr within rtol 2e-3 / atol "
+        f"0.5 of {os.path.relpath(ref_dir, ROOT)}; .all.tr written")
+
+
+def _read_tr(path):
+    """(header, LD sums per row, jackknife SNP count per row) of a .tr."""
+    with open(path) as f:
+        header = f.readline().strip()
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    return (header, np.array([[float(x) for x in r[:-1]] for r in rows]),
+            [int(float(r[-1])) for r in rows])
+
+
+def _check_trace(tdir, ref_dir):
+    """tests/test_golden_example.py's trace contract: .MN byte-identical;
+    .tr header and SNP counts exact, LD sums within rtol 2e-3, atol 0.5."""
+    stem = "run_test.pheno"
+    with open(os.path.join(tdir, stem + ".MN")) as a, open(
+            os.path.join(ref_dir, stem + ".MN")) as b:
+        if a.read() != b.read():
+            raise AssertionError(f"{stem}.MN differs from {ref_dir}'s")
+    got_h, got_v, got_n = _read_tr(os.path.join(tdir, stem + ".tr"))
+    ref_h, ref_v, ref_n = _read_tr(os.path.join(ref_dir, stem + ".tr"))
+    if got_h != ref_h or got_n != ref_n or got_v.shape != ref_v.shape:
+        raise AssertionError(f"{stem}.tr header, counts or shape differ "
+                             f"from {ref_dir}'s")
+    if not np.allclose(got_v, ref_v, rtol=2e-3, atol=0.5):
+        raise AssertionError(f"{stem}.tr LD sums differ from {ref_dir}'s by "
+                             f"up to {np.abs(got_v - ref_v).max():.3e}")
+    if not os.path.exists(os.path.join(tdir, stem + ".all.tr")):
+        raise AssertionError(f"GENIE wrote no {stem}.all.tr")
 
 
 def main():

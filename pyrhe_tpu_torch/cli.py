@@ -19,7 +19,8 @@ import time
 import numpy as np
 
 from .core.engine import unported
-from .models import RHE, RHE_DOM, StreamingRHE, StreamingRHE_DOM
+from .models import (GENIE, RHE, RHE_DOM, StreamingGENIE, StreamingRHE,
+                     StreamingRHE_DOM)
 from .utils.logger import Logger
 
 
@@ -210,7 +211,9 @@ def main(args):
     if args.model == "rhe":
         cls = StreamingRHE if args.streaming else RHE
     elif args.model == "genie":
-        raise unported("GENIE (--model genie)", 11)
+        params['env_file'] = args.env
+        params['genie_model'] = args.genie_model
+        cls = StreamingGENIE if args.streaming else GENIE
     elif args.model == "rhe_dom":
         cls = StreamingRHE_DOM if args.streaming else RHE_DOM
     else:

@@ -1,15 +1,17 @@
 """The RHE estimation engine on PyTorch: one device, blocks one at a time.
 
-Port of pyrhe_tpu/core/engine.py for RHE and RHE-DOM in float32. Orchestrates
-the method-of-moments pipeline over jackknife blocks:
+Port of pyrhe_tpu/core/engine.py for RHE, RHE-DOM and GENIE in float32.
+Orchestrates the method-of-moments pipeline over jackknife blocks:
 
   pass 1   for each SNP block j: host .bed read + imputation fills +
            missing-code clean (one block ahead, on a background thread)
            -> pinned host buffer -> non-blocking copy to the device ->
            decode + standardize + fused products (ops/moments) ->
            accumulate totals; cache per-block stats unless streaming.
-  pass 2   per-sample leave-one-out stats (total - block) -> assemble
-           (T, q) on the device, one jackknife sample at a time.
+  pass 2   per-sample leave-one-out stats (total - block, GENIE's
+           analytic NxE rows appended) -> assemble (T, q) on the device,
+           one jackknife sample at a time; the SUMRHE trace sums from the
+           assembled T when asked for (get_trace).
   solve    QR per sample + jackknife SEs + h2/enrichment (core/solver.py,
            host float64).
 
@@ -39,7 +41,7 @@ import torch
 
 from ..io.bed import clean_packed
 from ..ops.kernels import ROW_TILE, TN, pad_to, plane_permutation
-from ..ops.moments import acc_scan_stats, block_stats_pallas_core
+from ..ops.moments import acc_scan_stats, block_stats_pallas_core, nxe_stats
 from ..utils.logger import Logger
 from ..utils.types import GenoImputeMethod
 from . import solver as S
@@ -63,7 +65,6 @@ class ModelSpec:
     include_nxe appends num_env analytic hetero-noise rows.
     Estimate ordering matches the reference's (with the corrected GxE
     indexing k_gxe = num_bin + e*num_bin + k, see SURVEY §2.6).
-    The engine runs models "rhe" and "rhe_dom" so far.
     """
     model: str
     genie_model: str = "G"
@@ -103,7 +104,7 @@ class RunConfig:
     geno_impute_method: str = "binary"
     dtype: str = "float32"          # float32 (float64 | bfloat16: item 15)
     streaming: bool = False
-    get_trace: bool = False         # trace export: item 12
+    get_trace: bool = False         # SUMRHE trace sums (engine.trace_sums)
     trace_dir: str | None = None
     device: str = "auto"            # auto (= cuda) | cuda[:i] | cpu
     mm_mode: str = "auto"           # auto | split2 (exact | bf16: item 15)
@@ -113,16 +114,12 @@ class RunConfig:
     host_cache_gb: float = -1.0     # -1 / 0 only (host cache: item 8)
 
 
-def check_ported(spec: ModelSpec, cfg: RunConfig) -> None:
-    """Raise for the model and settings the port does not run yet."""
-    if spec.model not in ("rhe", "rhe_dom"):
-        raise unported(f"model {spec.model!r}", 11)
+def check_ported(cfg: RunConfig) -> None:
+    """Raise for the settings the port does not run yet."""
     if cfg.dtype != "float32":
         raise unported(f"dtype {cfg.dtype!r}", 15)
     if cfg.mm_mode not in ("auto", "split2"):
         raise unported(f"mm_mode {cfg.mm_mode!r}", 15)
-    if cfg.get_trace:
-        raise unported("trace export (--trace)", 12)
     if cfg.checkpoint_dir:
         raise unported("checkpoint/resume (--checkpoint_dir)", 9)
     if cfg.cache_blocks >= 0:
@@ -158,13 +155,15 @@ class StaticArrays:
     Q: torch.Tensor | None       # (ncov, ncov), not permuted
     valid_mask: torch.Tensor     # (n_pad,) 1.0 at kept individuals
     q_last: torch.Tensor         # (T,) y~^T y~ per trait
+    Y: torch.Tensor              # (n_pad, T) residualized phenotypes
     perm: np.ndarray             # (n_pad,) plane permutation
     n_pad: int
+    env: torch.Tensor | None = None   # (n_pad, num_env), GENIE only
 
 
 def static_arrays_from_numpy(Z, Uzb, cov, Q, Y_resid, keep_idx,
                              num_indiv_bed: int, device,
-                             dtype=torch.float32) -> StaticArrays:
+                             dtype=torch.float32, env=None) -> StaticArrays:
     """Build the device tensors from the dataset's numpy arrays.
 
     Every N-indexed (N_kept, k) array is scattered to n_pad rows at the
@@ -201,13 +200,14 @@ def static_arrays_from_numpy(Z, Uzb, cov, Q, Y_resid, keep_idx,
         valid_mask=torch.as_tensor(keep[perm], dtype=dtype, device=device),
         q_last=torch.as_tensor((np.asarray(Y_resid) ** 2).sum(axis=0),
                                dtype=dtype, device=device),
-        perm=perm, n_pad=n_pad)
+        Y=put(Y_resid), perm=perm, n_pad=n_pad,
+        env=put(env) if env is not None else None)
 
 
 class Engine:
     def __init__(self, data: DataBundle, spec: ModelSpec, cfg: RunConfig,
                  log: Logger | None = None):
-        check_ported(spec, cfg)
+        check_ported(cfg)
         GenoImputeMethod(cfg.geno_impute_method)  # raises on unknown value
         self.data = data
         self.spec = spec
@@ -227,7 +227,8 @@ class Engine:
         self.B = cfg.num_random_vec
         self.J = cfg.num_jack
         self.E_geno = len(spec.components) * self.K
-        self.E = self.E_geno
+        self.num_nxe = data.num_env if spec.include_nxe else 0
+        self.E = self.E_geno + self.num_nxe
         self.T_traits = data.num_traits
         self.use_cov = data.cov is not None
         self.b2 = self.B * (2 if self.use_cov else 1)
@@ -249,6 +250,7 @@ class Engine:
         self._cache: dict[int, tuple] = {}
         self._tot = None
         self.M_mat = self._build_M_matrix()
+        self.trace_sums = None
         # Cumulative per-phase seconds: host_read_s runs on the prefetch
         # thread overlapped with device work; h2d_s is device time of the
         # copies (CUDA events); pass1_s / pass2_s are wall time of each
@@ -264,11 +266,18 @@ class Engine:
         d = self.data
         self.Y_resid = d.resid_pheno() if d.pheno is not None else np.zeros(
             (d.num_indv, 0))
-        self.static = static_arrays_from_numpy(
+        st = self.static = static_arrays_from_numpy(
             d.Z, d.Uzb, d.cov, d.Q, self.Y_resid, d.bed.keep_idx,
-            d.bed.num_indiv, self.dev)
-        self.stoch_mask = torch.zeros(self.E, dtype=torch.bool,
-                                      device=self.dev)
+            d.bed.num_indiv, self.dev, env=d.env if d.num_env else None)
+        # border-trace rows estimated stochastically: GENIE rows k >= K
+        # (reference genie.py:84-94); exact tr K = N elsewhere
+        mask = np.zeros(self.E, dtype=bool)
+        if self.spec.model == "genie":
+            mask[self.K:] = True
+        self.stoch_mask = torch.as_tensor(mask, device=self.dev)
+        if self.num_nxe:
+            self.nxe = nxe_stats(st.env, st.Z, st.Uzb, st.Y, self.b2,
+                                 self.B)
 
     def _block_range(self, j: int):
         """Contiguous SNP blocks; last absorbs remainder (reference base.py:362-379)."""
@@ -279,15 +288,16 @@ class Engine:
 
     def _build_M_matrix(self) -> np.ndarray:
         """M (J+1, E): leave-one-out SNP counts per estimate; last row =
-        full-genome counts (reference base.py:450, rhe.py:16)."""
-        M = np.zeros((self.J + 1, self.E), dtype=np.int64)
-        last = np.concatenate([self.data.len_bin
-                               for _ in self.spec.components])
-        M[self.J] = last
+        full-genome counts (reference base.py:450, rhe.py:16); each NxE
+        row counts 1 in every sample (genie.py:79-82)."""
+        n_comp = len(self.spec.components)
+        M = np.ones((self.J + 1, self.E), dtype=np.int64)
+        last = np.concatenate([self.data.len_bin] * n_comp)
+        M[self.J, :self.E_geno] = last
         for j in range(self.J):
             s, e = self._block_range(j)
             m_blk = self.data.annot[s:e].sum(axis=0)
-            M[j] = last - np.concatenate([m_blk] * len(self.spec.components))
+            M[j, :self.E_geno] = last - np.concatenate([m_blk] * n_comp)
         return M
 
     # ------------------------------------------------------------- block pass
@@ -370,7 +380,7 @@ class Engine:
         """Per-block stats in the kernels' (E_geno, b2, N) layout."""
         st = self.static
         XXP, yXXy, _ = block_stats_pallas_core(
-            words, annot, st.P, None, st.valid_mask, **self._stat_kw())
+            words, annot, st.P, st.env, st.valid_mask, **self._stat_kw())
         return XXP.transpose(1, 2), yXXy
 
     def _sync(self):
@@ -396,7 +406,7 @@ class Engine:
                             dtype=torch.float32, device=self.dev)
         if self.cfg.streaming:
             tot_X, tot_y = acc_scan_stats(
-                self._blocks(range(self.J)), st.P, None, st.valid_mask,
+                self._blocks(range(self.J)), st.P, st.env, st.valid_mask,
                 tot_X, tot_y, K=self.K, **self._stat_kw())
         else:
             for j, (words, annot) in enumerate(self._blocks(range(self.J))):
@@ -419,7 +429,12 @@ class Engine:
                 yield self._cache.pop(j)
 
     def _assemble_one(self, X, y, j):
+        """(T, q) of sample j from its (E_geno, b2, N) stats, with the NxE
+        rows appended (reference engine._loo_stats)."""
         st = self.static
+        if self.num_nxe:
+            X = torch.cat([X, self.nxe[0]])
+            y = torch.cat([y, self.nxe[1]])
         return assemble_Tq_core(
             X.transpose(1, 2), y, torch.as_tensor(self.M_mat[j],
                                                   device=self.dev),
@@ -444,7 +459,19 @@ class Engine:
         self.T_all = torch.stack(Ts).cpu().numpy().astype(np.float64)
         self.q_all = torch.stack(qs).cpu().numpy().astype(np.float64)
         self._end_pass("pass2_s", t0)
+        if self.cfg.get_trace:
+            self.trace_sums = self._compute_trace_sums()
         return self.T_all, self.q_all
+
+    def _compute_trace_sums(self):
+        """SUMRHE LD-sum matrix (J+1, E, E) from the assembled T (reference
+        base.py:598-599)."""
+        n = self.data.num_indv
+        Mf = self.M_mat.astype(np.float64)
+        MM = Mf[:, :, None] * Mf[:, None, :]
+        tr = self.T_all[:, :self.E, :self.E]
+        return np.where(MM != 0, S.calc_lsum(tr, n, Mf[:, :, None],
+                                             Mf[:, None, :]), 0.0)
 
     # -------------------------------------------------------------- estimate
     def run_precompute_and_assemble(self):

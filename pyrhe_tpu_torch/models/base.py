@@ -13,6 +13,8 @@ raises (core/engine.pick_device).
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..core.data import load_dataset
@@ -66,7 +68,6 @@ class BaseModel:
         self.samp_prev = samp_prev
         self.pop_prev = pop_prev
         self.genie_model = genie_model
-        self.spec = ModelSpec.build(self.MODEL, genie_model)
         self.cfg = RunConfig(
             num_random_vec=num_random_vec,
             num_jack=num_jack,
@@ -83,14 +84,14 @@ class BaseModel:
             cache_blocks=cache_blocks,
         )
         # refuse unported features before reading any file
-        check_ported(self.spec, self.cfg)
+        check_ported(self.cfg)
 
         self.data = load_dataset(
             geno_file,
             annot_file=annot_file,
             pheno_file=pheno_file,
             cov_file=cov_file,
-            env_file=None,
+            env_file=env_file if self.MODEL == "genie" else None,
             num_bin=num_bin,
             num_random_vec=num_random_vec,
             seed=seed,
@@ -99,6 +100,11 @@ class BaseModel:
             categorical_threshhold=categorical_threshhold,
             log=self.log,
         )
+        if self.MODEL == "genie":
+            self.log._log(f"Number of environments: {self.data.num_env}")
+            self.log._log(f"GENIE model: {genie_model}")
+        self.spec = ModelSpec.build(self.MODEL, genie_model,
+                                    self.data.num_env)
         self.engine = Engine(self.data, self.spec, self.cfg, self.log)
         self._computed = False
         self._trait = 0
@@ -162,6 +168,49 @@ class BaseModel:
                            self.engine.M_mat)
         return enr[:-1], enr[-1]
 
+    def get_trace_summary(self):
+        """Write SUMRHE-compatible `<prefix>.MN` and `<prefix>.tr` sumstats
+        (reference base.py:831-855), prefix `run_<pheno file name>` in
+        cfg.trace_dir when that is a directory, else in the working
+        directory.
+
+        The `.tr` format is SUMRHE's and carries only the K genetic-bin
+        rows/columns. When E > K (GENIE) a second file `<prefix>.all.tr`
+        holds every component's row (K genetic bins, then K*num_env GxE
+        bins, then num_env NxE columns)."""
+        trace_sums = self.engine.trace_sums
+        pheno_path = (os.path.basename(self.data.pheno_file)
+                      if self.data.pheno_file else None)
+        trace_filename = f"run_{pheno_path}"
+        trace_dir = self.cfg.trace_dir
+        if trace_dir and os.path.isdir(trace_dir):
+            trace_prefix = os.path.join(trace_dir, trace_filename)
+        else:
+            trace_prefix = trace_filename
+        K = self.num_bin
+        with open(trace_prefix + ".MN", "w") as fd:
+            fd.write("NSAMPLE,NSNPS,NBLKS,NBINS,K\n")
+            fd.write(f"{self.num_indv:.0f},{self.num_snp:.0f},"
+                     f"{self.cfg.num_jack:.0f},{K:.0f},"
+                     f"{self.cfg.num_random_vec:.0f}")
+        self._write_tr(trace_prefix + ".tr", trace_sums, K)
+        if trace_sums.shape[1] > K:
+            self._write_tr(trace_prefix + ".all.tr", trace_sums,
+                           trace_sums.shape[1])
+        self.log._log(f"Saved trace summary into {trace_prefix}(.tr/.MN)")
+
+    def _write_tr(self, path, trace_sums, E):
+        """The leading (E, E) block of every sample's trace sums, one row
+        per estimate with its jackknife SNP count."""
+        with open(path, "w") as fd:
+            fd.write(",".join(f"LD_SUM_{i:d}" for i in range(E))
+                     + ",NSNPS_JACKKNIFE\n")
+            for j in range(self.cfg.num_jack + 1):
+                for k in range(E):
+                    row = ",".join(f"{trace_sums[j, k, l]:.3f}"
+                                   for l in range(E))
+                    fd.write(row + f",{self.engine.M_mat[j, k]:.0f}\n")
+
     def get_XtXz(self, output: str, jackknife_blocks: bool = True):
         raise unported("get_XtXz", 12)
 
@@ -176,6 +225,8 @@ class BaseModel:
         self.log._log("*****")
         self.log._log(f"OUTPUT FOR TRAIT {trait}: ")
         self._ensure_computed()
+        if self.cfg.get_trace:
+            self.get_trace_summary()
         res = self.run(method=method, trait=trait)
         self._check_finite(res)
         return res

@@ -3,8 +3,9 @@
 Port of pyrhe_tpu/ops/moments.py for the kernel path (the reference's
 `mm2_t` branch of `_moment_algebra`, `block_stats_pallas_core`,
 `block_stats_pallas_acc_core` and `acc_scan_stats`), for additive (RHE,
-GxE) and dominance (RHE-DOM) components. For one jackknife block of m SNPs
-every statistic comes from products over the decoded dosages g:
+GxE) and dominance (RHE-DOM) components, and GENIE's analytic NxE stats
+(`nxe_stats`). For one jackknife block of m SNPs every statistic comes
+from products over the decoded dosages g:
 
     GP  = g  @ [mask | P | env_e ⊙ P ...]      stage 1, ops/kernels.gp_matmul
     XXG = Yᵀ @ g                                stage 2, ops/kernels.ytg_matmul
@@ -296,3 +297,21 @@ def acc_scan_stats(blocks, P, env, mask, totX, toty, *, K, components,
             **acc_kw)
         toty = toty + yXXy
     return totX, toty
+
+
+def nxe_stats(env, Z, Uzb, Y, b2, B):
+    """Analytic hetero-noise (NxE) component statistics.
+
+    The NxE pseudo-genotype is diag(env_e), so XXz = env_e² ⊙ z (and
+    env_e² ⊙ Uzb with covariates) and yXXy = ‖env_e ⊙ y~‖²: O(N)
+    elementwise work, no kernel. Inputs are (n_pad, ·) in the kernels'
+    plane-permuted layout. Returns XXP (num_env, b2, N), the kernels'
+    layout, so it concatenates onto the per-block stats, and yXXy
+    (num_env, T)."""
+    e2 = (env * env).T[:, None, :]                        # (num_env, 1, N)
+    cols = [e2 * Z.T[None, :, :]]
+    if b2 > B:
+        cols.append(e2 * Uzb.T[None, :, :])
+    XXP = torch.cat(cols, dim=1)                          # (num_env, b2, N)
+    ey = env.T[:, :, None] * Y[None, :, :]                # (num_env, N, T)
+    return XXP, torch.sum(ey * ey, dim=1)

@@ -206,24 +206,32 @@ def dataset(tmp_path_factory):
     synth.make_dataset(prefix, 900, 1200, seed=3, missing_rate=0.01)
     a8 = synth.make_annot(str(d / "multi.annot"), 1200, 8, seed=4)
     cov = synth.make_cov_file(str(d / "test.cov"), 900, num_cov=3, seed=3)
+    synth.make_env_file(str(d / "test.env"), 900, num_env=2, seed=3)
     synth.simulate_pheno_file(prefix, prefix, [0.05] * 8, a8, seed=5,
                               cov=cov)
-    return prefix, str(d / "multi.annot"), str(d / "test.cov")
+    return (prefix, str(d / "multi.annot"), str(d / "test.cov"),
+            str(d / "test.env"))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["rhe", "rhe_dom"])
+@pytest.mark.parametrize("model", ["rhe", "rhe_dom", "genie"])
 def test_cuda_engine_matches_cpu_and_streaming(cuda_device, dataset, model):
+    """The engine on the card against the port on the CPU, and cached ==
+    streaming bitwise on the card; GENIE runs G+GxE+NxE with two
+    environments (env-scaled gp columns, the env column as ytg_acc's
+    scale, analytic NxE rows)."""
     from pyrhe_tpu_torch.core.data import load_dataset
     from pyrhe_tpu_torch.core.engine import Engine, ModelSpec, RunConfig
 
-    prefix, annot, cov = dataset
+    prefix, annot, cov, env = dataset
 
     def run(device, streaming):
         data = load_dataset(prefix, annot_file=annot,
                             pheno_file=prefix + ".pheno", cov_file=cov,
+                            env_file=env if model == "genie" else None,
                             num_random_vec=6, seed=7)
-        eng = Engine(data, ModelSpec.build(model),
+        eng = Engine(data, ModelSpec.build(model, "G+GxE+NxE",
+                                           data.num_env),
                      RunConfig(num_random_vec=6, num_jack=6, seed=7,
                                device=device, streaming=streaming))
         eng.run_precompute_and_assemble()

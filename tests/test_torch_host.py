@@ -133,17 +133,21 @@ def test_static_arrays_match_jax_engine(small_dataset, filtered_dataset,
     data = jax_load_dataset(ds["prefix"], annot_file=ds["annot1_path"],
                             pheno_file=ds["pheno_path"],
                             cov_file=ds["cov_path"] if cov else None,
-                            num_random_vec=4, seed=7)
-    eng = JaxEngine(data, JaxModelSpec.build("rhe"),
+                            env_file=ds["env_path"], num_random_vec=4,
+                            seed=7)
+    eng = JaxEngine(data, JaxModelSpec.build("genie", "G+GxE+NxE",
+                                             data.num_env),
                     JaxRunConfig(num_random_vec=4, num_jack=4, seed=7,
                                  dtype="float32", use_pallas=True))
     st = static_arrays_from_numpy(
         data.Z, data.Uzb, data.cov, data.Q, eng.Y_resid, data.bed.keep_idx,
-        data.bed.num_indiv, torch.device("cpu"))
+        data.bed.num_indiv, torch.device("cpu"), env=data.env)
     assert st.n_pad == eng.n_pad
     np.testing.assert_array_equal(st.perm, eng.perm)
+    # the residualized phenotypes are the probe matrix's last columns
     pairs = [(st.P, eng.P), (st.Z, eng.Zd), (st.Uzb, eng.Uzbd),
-             (st.valid_mask, eng.valid_mask), (st.q_last, eng.q_last)]
+             (st.valid_mask, eng.valid_mask), (st.q_last, eng.q_last),
+             (st.env, eng.envd), (st.Y, np.asarray(eng.P)[:, -1:])]
     if cov:
         pairs += [(st.C, eng.Cd), (st.Q, eng.Qd)]
     else:
@@ -162,6 +166,7 @@ def test_port_imports_neither_jax_nor_pandas():
         "pyrhe_tpu_torch.core.engine", "pyrhe_tpu_torch.ops.kernels",
         "pyrhe_tpu_torch.ops.moments", "pyrhe_tpu_torch.models.base",
         "pyrhe_tpu_torch.models.rhe", "pyrhe_tpu_torch.models.rhe_dom",
+        "pyrhe_tpu_torch.models.genie",
         "pyrhe_tpu_torch.profile_run", "pyrhe_tpu_torch.cohort",
     ]
     code = ("import importlib, sys\n"
@@ -221,8 +226,8 @@ def test_cpu_wrappers_never_touch_the_build(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "genie"], ["--dtype", "float64"],
-    ["--dtype", "bfloat16"], ["--trace"], ["--checkpoint_dir", "ck"],
+    ["--dtype", "float64"], ["--dtype", "bfloat16"],
+    ["--checkpoint_dir", "ck"],
     ["--cache_blocks", "0"], ["--profile_dir", "prof"],
     ["--host_cache_gb", "2"],
 ])
