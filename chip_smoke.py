@@ -14,17 +14,19 @@ non-zero without printing a result:
    square=True, ytg_acc, ytg_acc2) against its plain PyTorch version on the
    card at the main paths' shapes (m_pad 1024, n_pad 100352, stage-1 width
    22 / 44 split, stage-2 rows 320 split: K = 8 bins x b2 = 20 probe
-   columns of one component), split and unsplit; ytg_acc must equal ytg
-   plus the tensor transform bitwise, ytg_acc2 two ytg calls (g, g²) plus
-   the transform; gp, ytg and ytg² must repeat bitwise, and their error
-   against a float64 product is printed beside the plain f32 product's.
+   columns of one component), f32 unsplit, split2 and bf16 unsplit (the
+   operands of mm_mode bf16: stage-1 width 22, stage-2 rows 160); ytg_acc
+   must equal ytg plus the tensor transform bitwise, ytg_acc2 two ytg
+   calls (g, g²) plus the transform; gp, ytg and ytg² must repeat bitwise,
+   and their error against a float64 product is printed beside the plain
+   f32 product's.
    Median times of the kernel, its plain version and the library
    yardstick (torch.matmul on the tile decoded beforehand, f32 operands,
    TF32 off: the product alone for ytg_acc, both products for ytg_acc2),
-   and each kernel's bound: the larger of its bytes (inputs read once,
-   outputs written once) over 3.35 TB/s and its flops over the peak for
-   the operand type (989 TF/s bf16 on the tensor cores, 67 TF/s f32),
-   H100 SXM at 700 W. gp is timed
+   and each kernel's bound, for split2 and (`bf16_*` keys) bf16: the
+   larger of its bytes (inputs read once, outputs written once) over 3.35
+   TB/s and its flops over the peak for the operand type (989 TF/s bf16
+   on the tensor cores, 67 TF/s f32), H100 SXM at 700 W. gp is timed
    again on a C built as the main path builds it (mask column + probes,
    ops/moments._stage1_cols; `ms_main_path_c`) and on GENIE's (mask
    column + three env variants of the probes, 128 split columns;
@@ -40,19 +42,36 @@ non-zero without printing a result:
    GENIE G+GxE+NxE: GENIE(...) and StreamingGENIE(...)) runs cached and
    streaming with the launch counts set to 0 just before and read just
    after, then through the CLI with --streaming; per path: the cached run
-   kept its stats cache (12.8 GB for RHE-DOM, 19.3 GB for GENIE), cached
-   == streaming bitwise, every sigma^2, SE and h2 finite, total h2 within
-   3 SE of the simulated truth (the cohort has no dominance, GxE or NxE
-   effect: GENIE's total h2_gxe within 3 SE of 0), every kernel of the
-   path launched, the CLI's sigma^2 equal to the streaming model's;
-5. cross-check on the example dataset (N = 5000, M = 10000): RHE (1 bin),
+   kept its stats cache (12.8 GB for RHE-DOM, 19.3 GB for GENIE), the
+   streaming run served all of pass 2 from the host block cache
+   (host_cache_gb -1, auto), cached == streaming bitwise, every sigma^2,
+   SE and h2 finite, total h2 within 3 SE of the simulated truth (the
+   cohort has no dominance, GxE or NxE effect: GENIE's total h2_gxe
+   within 3 SE of 0), every kernel of the path launched, the CLI's
+   sigma^2 equal to the streaming model's;
+5. the other modes on that cohort: RHE in float64 (mm_mode exact, no
+   kernel launch) and bf16 (the kernels with unsplit bf16 operands),
+   cached and streaming, and RHE-DOM in bf16, cached and streaming, with
+   the launch counts set to 0 before the bf16 runs and read after them
+   (every kernel launched); cached == streaming bitwise in each; sigma^2
+   and h2 of phase 4's float32 RHE within the split2 envelope (3e-4) of
+   float64, bf16's within the bf16 envelope (3e-2 sigma^2, 2e-2 h2);
+   RHE-DOM with cache_blocks=40 (hybrid) bitwise equal to phase 4's cached
+   and streaming runs; RHE streaming with the host cache off bitwise equal
+   to phase 4's (on); the H2D time of one staged block from pinned and
+   from pageable memory;
+6. cross-check on the example dataset (N = 5000, M = 10000): RHE (1 bin),
    RHE-DOM (8 bins) and GENIE G+GxE+NxE (8 bins, one environment) on the
    card (bf16 split2) against the port on the CPU (f32), the reference
    implementation's published RHE run and the RHE-DOM and GENIE golden
    outputs in example/outputs; then GENIE's CLI with --trace on the card,
    whose .MN must equal the reference implementation's byte for byte and
    whose .tr must match it within tests/test_golden_example.py's
-   tolerances.
+   tolerances;
+7. the exports on the example dataset in float64, the card against the
+   CPU port: get_XtXz and its jackknife files, simulate_pheno and the
+   estimate after it; then one CLI run on the card with --profile_dir,
+   whose trace must hold the kernels' device events.
 
 The last two lines are a JSON object of per-kernel results and the
 {"ok": true, "device": ...} line.
@@ -85,6 +104,7 @@ REFERENCE_RUN = {
     "h2_g0": (0.19378023613299408, 0.028743496038605126),
 }
 SPLIT2_RTOL = 3e-4               # tests/test_engine_vs_oracle.py envelope
+BF16_RTOL_SIG, BF16_RTOL_H2 = 3e-2, 2e-2   # its bf16 envelope
 # Published H100 SXM peaks at 700 W (bytes/s, flop/s by operand type).
 HBM_BPS, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 SPIN_CYCLES = 4_000_000          # ~2 ms of the card's clock
@@ -202,19 +222,25 @@ def phase_kernels():
     Yt[:, 1000:] = 0.0
     Q = QR // 2
     Yh = _hilo(Yt[:Q], 0).contiguous()                   # (320, m) bf16
+    Yb = Yt[:Q].to(torch.bfloat16).contiguous()          # (160, m) bf16
     res = {}
 
-    def record(name, split, err, ms, plain_ms, library_ms, nbytes, flops,
+    def record(name, case, err, ms, plain_ms, library_ms, nbytes, flops,
                dtype, **extra):
-        """Errors over every case; times and bound of the split (bf16)
-        case, which is what the main path runs on the card."""
+        """Errors over every case; times and bound of the split case (the
+        float32 main path on the card) and, under bf16_* keys, of the
+        unsplit bf16 case (the bf16 main path)."""
         r = res.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         bound_ms, by = _bound(nbytes, flops, dtype)
-        if split:
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                     bound_ms=bound_ms, bound_by=by,
-                     bound_share=bound_ms / ms, **extra)
+        got = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=by, bound_share=bound_ms / ms,
+                   **extra)
+        if case == "split":
+            r.update(got)
+        elif case == "bf16":
+            r.update({f"bf16_{k}": v for k, v in got.items()},
+                     bf16_max_abs_err=err)
         return (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                 f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({by}, "
                 f"{100 * bound_ms / ms:.2f} % of it)")
@@ -222,13 +248,15 @@ def phase_kernels():
     words_b = _nbytes(words)
     for square in (False, True):
         name = "gp_matmul_square" if square else "gp_matmul"
-        for split, Cop in ((False, C), (True, _hilo(C, 1).contiguous())):
+        for case, Cop in (("f32", C), ("split", _hilo(C, 1).contiguous()),
+                          ("bf16", C.to(torch.bfloat16))):
+            split = case == "split"
             got = K.gp_matmul(words, Cop, square)
             if not torch.equal(got, K.gp_matmul(words, Cop, square)):
-                raise AssertionError(f"{name} split={split}: two launches "
-                                     "differ (must be deterministic)")
+                raise AssertionError(f"{name} {case}: two launches differ "
+                                     "(must be deterministic)")
             ref = K.gp_plain(words, Cop, square)
-            err = _close(f"{name} split={split}", got, ref)
+            err = _close(f"{name} {case}", got, ref)
             # against float64: the kernel and the plain f32 product
             r64 = dense[square].double() @ C.double()
             e64 = {}
@@ -240,11 +268,11 @@ def phase_kernels():
             pms = _median_ms(lambda: K.gp_plain(words, Cop, square), reps=5)
             Cf = Cop.float()
             lms = _median_ms(lambda: dense[square] @ Cf, reps=10)
-            line = record(name, split, err, ms, pms, lms,
+            line = record(name, case, err, ms, pms, lms,
                           words_b + _nbytes(Cop, got),
                           2 * M_PAD * N_PAD * Cop.shape[1], Cop.dtype,
                           err_vs_f64=e64["kernel"])
-            log(f"[3 kernels] {name} split={split} C {tuple(Cop.shape)} "
+            log(f"[3 kernels] {name} {case} C {tuple(Cop.shape)} "
                 f"{Cop.dtype}: max abs err vs plain {err:.3e}; vs float64 "
                 f"kernel {e64['kernel']:.3e}, plain f32 {e64['plain']:.3e} "
                 f"(max |ref| {rel:.3e}); bitwise repeatable; {line}")
@@ -290,16 +318,18 @@ def phase_kernels():
     Y640 = _hilo(Y640, 0).contiguous()
     for square in (False, True):
         name = "ytg_matmul_square" if square else "ytg_matmul"
-        for split, Yop in ((False, Yt), (True, Yh)):
+        for case, Yop in (("f32", Yt), ("split", Yh), ("bf16", Yb)):
+            split = case == "split"
             got = K.ytg_matmul(words, Yop, square)
             if not torch.equal(got, K.ytg_matmul(words, Yop, square)):
-                raise AssertionError(f"{name} split={split}: two launches "
-                                     "differ (must be deterministic)")
+                raise AssertionError(f"{name} {case}: two launches differ "
+                                     "(must be deterministic)")
             ref = K.ytg_plain(words, Yop, square)
-            err = _close(f"{name} split={split}", got, ref)
+            err = _close(f"{name} {case}", got, ref)
             # against float64 of the f32 Yt: the kernel and the plain f32
             # product (split: the two halves summed)
-            r64 = (Yt[:Q] if split else Yt).double() @ dense[square].double()
+            r64 = (Yt if case == "f32" else Yt[:Q]).double() @ dense[
+                square].double()
             e64 = {who: (K.sum_halves(x, split).double() - r64).abs().max()
                    .item() for who, x in (("kernel", got), ("plain", ref))}
             rel = r64.abs().max().item()
@@ -308,11 +338,11 @@ def phase_kernels():
             pms = _median_ms(lambda: K.ytg_plain(words, Yop, square), reps=5)
             Yf = Yop.float()
             lms = _median_ms(lambda: Yf @ dense[square], reps=10)
-            line = record(name, split, err, ms, pms, lms,
+            line = record(name, case, err, ms, pms, lms,
                           words_b + _nbytes(Yop, got),
                           2 * Yop.shape[0] * M_PAD * N_PAD, Yop.dtype,
                           err_vs_f64=e64["kernel"])
-            log(f"[3 kernels] {name} split={split} Yt {tuple(Yop.shape)} "
+            log(f"[3 kernels] {name} {case} Yt {tuple(Yop.shape)} "
                 f"{Yop.dtype}: max abs err vs plain {err:.3e}; vs float64 "
                 f"kernel {e64['kernel']:.3e}, plain f32 {e64['plain']:.3e} "
                 f"(max |ref| {rel:.3e}); bitwise repeatable; {line}")
@@ -340,7 +370,9 @@ def phase_kernels():
 
     mask = (torch.rand(1, N_PAD, device=dev, generator=gen) < 0.9).float()
     env_row = env[:, 0][None, :].contiguous()    # a GxE component's scale
-    for split, Yop in ((False, Yt[:Q].contiguous()), (True, Yh)):
+    for case, Yop in (("f32", Yt[:Q].contiguous()), ("split", Yh),
+                      ("bf16", Yb)):
+        split = case == "split"
         rank1 = torch.randn(Q, 1, device=dev, generator=gen)
         err = 0.0
         for scale in (env_row, torch.ones(1, N_PAD, device=dev),
@@ -355,12 +387,11 @@ def phase_kernels():
             if not torch.equal(got, expect):
                 bad = (got != expect).sum().item()
                 raise AssertionError(
-                    f"ytg_acc_matmul split={split}: {bad} elements differ "
-                    "from ytg_matmul + transform (must be bitwise equal)")
+                    f"ytg_acc_matmul {case}: {bad} elements differ from "
+                    "ytg_matmul + transform (must be bitwise equal)")
             ref = K.ytg_acc_plain(words, Yop, rank1, scale, mask,
                                   tot0.clone(), split)
-            err = max(err, _close(f"ytg_acc_matmul split={split}", got,
-                                  ref))
+            err = max(err, _close(f"ytg_acc_matmul {case}", got, ref))
         tot = tot0.clone()
         ms = _median_ms(lambda: K.ytg_acc_matmul(
             words, Yop, rank1, scale, mask, tot, split=split))
@@ -368,10 +399,10 @@ def phase_kernels():
             words, Yop, rank1, scale, mask, tot, split), reps=5)
         Yf = Yop.float()
         lms = _median_ms(lambda: Yf @ dense[False], reps=10)
-        line = record("ytg_acc_matmul", split, err, ms, pms, lms,
+        line = record("ytg_acc_matmul", case, err, ms, pms, lms,
                       words_b + _nbytes(Yop, rank1, scale, mask, tot, tot),
                       2 * Yop.shape[0] * M_PAD * N_PAD, Yop.dtype)
-        log(f"[3 kernels] ytg_acc_matmul split={split} Yt "
+        log(f"[3 kernels] ytg_acc_matmul {case} Yt "
             f"{tuple(Yop.shape)} {Yop.dtype}: bitwise == ytg + transform "
             f"(scales: env row, ones, random); max abs err vs plain "
             f"{err:.3e}; {line}")
@@ -383,8 +414,10 @@ def phase_kernels():
 
     Yt2 = torch.randn(Q, M_PAD, device=dev, generator=gen)
     Yt2[:, 1000:] = 0.0
-    for split, Y1, Y2 in ((False, Yt[:Q].contiguous(), Yt2),
-                          (True, Yh, _hilo(Yt2, 0).contiguous())):
+    for case, Y1, Y2 in (("f32", Yt[:Q].contiguous(), Yt2),
+                         ("split", Yh, _hilo(Yt2, 0).contiguous()),
+                         ("bf16", Yb, Yt2.to(torch.bfloat16))):
+        split = case == "split"
         rank1 = torch.randn(Q, 1, device=dev, generator=gen)
         tot0 = torch.randn(Q, N_PAD, device=dev, generator=gen)
         got = K.ytg_acc2_matmul(words, Y1, Y2, rank1, mask, tot0.clone(),
@@ -395,11 +428,11 @@ def phase_kernels():
         if not torch.equal(got, expect):
             bad = (got != expect).sum().item()
             raise AssertionError(
-                f"ytg_acc2_matmul split={split}: {bad} elements differ from "
-                "two ytg_matmul calls + transform (must be bitwise equal)")
+                f"ytg_acc2_matmul {case}: {bad} elements differ from two "
+                "ytg_matmul calls + transform (must be bitwise equal)")
         ref = K.ytg_acc2_plain(words, Y1, Y2, rank1, mask, tot0.clone(),
                                split)
-        err = _close(f"ytg_acc2_matmul split={split}", got, ref)
+        err = _close(f"ytg_acc2_matmul {case}", got, ref)
         tot = tot0.clone()
         ms = _median_ms(lambda: K.ytg_acc2_matmul(
             words, Y1, Y2, rank1, mask, tot, split=split))
@@ -408,10 +441,10 @@ def phase_kernels():
         Y1f, Y2f = Y1.float(), Y2.float()
         lms = _median_ms(lambda: (Y1f @ dense[False], Y2f @ dense[True]),
                          reps=10)
-        line = record("ytg_acc2_matmul", split, err, ms, pms, lms,
+        line = record("ytg_acc2_matmul", case, err, ms, pms, lms,
                       words_b + _nbytes(Y1, Y2, rank1, mask, tot, tot),
                       4 * Y1.shape[0] * M_PAD * N_PAD, Y1.dtype)
-        log(f"[3 kernels] ytg_acc2_matmul split={split} Yt1, Yt2 "
+        log(f"[3 kernels] ytg_acc2_matmul {case} Yt1, Yt2 "
             f"{tuple(Y1.shape)} {Y1.dtype}: bitwise == two ytg + transform;"
             f" max abs err vs plain {err:.3e}; {line}")
     del dense
@@ -457,7 +490,10 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels, kw, checks):
     0 just before and read just after; then its CLI --streaming run. kw:
     the models' extra arguments; checks: (name, index into h2_total,
     simulated truth) of each heritability held within 3 SE of its truth.
-    Returns the launch counts."""
+    Returns (the launch counts, {"cached" | "streaming": (T_all, q_all,
+    sigma_ests_total, h2_total)}); the streaming run takes the host block
+    cache (host_cache_gb -1, auto) and must serve all of pass 2 from
+    it."""
     import torch
     from pyrhe_tpu_torch import cohort
     from pyrhe_tpu_torch.ops import kernels as K
@@ -477,6 +513,14 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels, kw, checks):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched by the {label} "
                                  "path")
+    if pt_s.get("host_cache_hits") != cohort.JACK:
+        raise AssertionError(f"{label}: streaming pass 2 took "
+                             f"{pt_s.get('host_cache_hits')} blocks from the "
+                             f"host cache, not all {cohort.JACK}")
+    out = {key: (m.engine.T_all, m.engine.q_all,
+                 np.asarray(r["sigma_ests_total"]), np.asarray(r["h2_total"]))
+           for key, m, r in (("cached", cached, res_c),
+                             ("streaming", streaming, res_s))}
     eq_T = np.array_equal(cached.engine.T_all, streaming.engine.T_all)
     eq_q = np.array_equal(cached.engine.q_all, streaming.engine.q_all)
     if not (eq_T and eq_q):
@@ -496,13 +540,14 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels, kw, checks):
     del cached, streaming
     torch.cuda.empty_cache()
 
-    out = os.path.join(os.path.dirname(prefix), f"cli_{model}_streaming.txt")
+    report = os.path.join(os.path.dirname(prefix),
+                          f"cli_{model}_streaming.txt")
     t0 = time.perf_counter()
     subprocess.run(
         [sys.executable, "-m", "pyrhe_tpu_torch.cli", "--model", model,
-         *cohort.cli_args(prefix, **kw), "--streaming", "-o", out,
+         *cohort.cli_args(prefix, **kw), "--streaming", "-o", report,
          "--suppress"], check=True, cwd=ROOT)
-    got = parse_output_file(out)
+    got = parse_output_file(report)
     cli_sigma = [g["value"] for key in ("sigma2_g", "sigma2_gxe",
                                         "sigma2_nxe") for g in got[key]] + [
         got["sigma2_e"]["value"]]
@@ -513,12 +558,13 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels, kw, checks):
     log(f"{tag} CLI --model {model} --streaming run: "
         f"{time.perf_counter() - t0:.1f} s wall (new process, kernels "
         f"already built); sigma equal to {cls_s.__name__}'s")
-    return launches
+    return launches, out
 
 
 def phase_main(d):
-    """The three main paths on one synthesized cohort; returns each
-    kernel's launches summed over the paths' runs."""
+    """The three main paths on one synthesized cohort; returns (the
+    cohort's prefix, each kernel's launches summed over the paths' runs,
+    {path label: _drive_path's results})."""
     from pyrhe_tpu_torch import (GENIE, RHE, RHE_DOM, StreamingGENIE,
                                  StreamingRHE, StreamingRHE_DOM, cohort)
     from pyrhe_tpu_torch.ops import kernels as K
@@ -529,6 +575,7 @@ def phase_main(d):
     total_h2 = [("total h2", -1, truth)]
     # GENIE's h2_total ends [total h2, total h2_g, total h2_gxe]
     genie_h2 = [("total h2", -3, truth), ("total h2_gxe", -1, 0.0)]
+    results = {}
     # (label, --model, cached class, streaming class, kernels it launches,
     #  extra model arguments, heritability checks)
     for path in (("RHE", "rhe", RHE, StreamingRHE, additive, {}, total_h2),
@@ -536,9 +583,187 @@ def phase_main(d):
                   K.KERNELS, {}, total_h2),
                  ("GENIE", "genie", GENIE, StreamingGENIE, additive,
                   cohort.genie_kw(prefix), genie_h2)):
-        for name, n in _drive_path(prefix, *path).items():
+        launches, results[path[0]] = _drive_path(prefix, *path)
+        for name, n in launches.items():
             total[name] += n
-    return total
+    return prefix, total, results
+
+
+def _assert_same(label, got, want):
+    """(T_all, q_all) pairs bitwise equal."""
+    for name, a, b in (("T_all", got[0], want[0]), ("q_all", got[1], want[1])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: {name} differs (max abs "
+                                 f"{np.abs(a - b).max():.3e})")
+
+
+def _envelope(label, got, want, rtol_sig, rtol_h2):
+    """sigma^2 and h2 (each bin's and the total) of got within rtol of
+    want's (the envelope check of tests/test_engine_vs_oracle.py); returns
+    the two gaps relative to the largest entry."""
+    (_, _, sig, h2), (_, _, sig0, h20) = got, want
+    gaps = []
+    for what, a, b, rtol in (("sigma^2", sig, sig0, rtol_sig),
+                             ("h2", h2, h20, rtol_h2)):
+        atol = rtol * np.abs(b).max()
+        if not np.all(np.abs(a - b) <= atol + rtol * np.abs(b)):
+            raise AssertionError(f"{label}: {what} {a} vs {b} outside rtol "
+                                 f"{rtol}")
+        gaps.append(np.abs(a - b).max() / np.abs(b).max())
+    return gaps
+
+
+def _h2d_ms(nbytes, pin):
+    """Median ms of one host-to-device copy of nbytes from a pinned or a
+    pageable host buffer (CUDA events around the copy)."""
+    import torch
+    host = torch.ones(nbytes, dtype=torch.uint8, pin_memory=pin)
+    times = []
+    for _ in range(12):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        host.to("cuda", non_blocking=True)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times[2:])
+
+
+def phase_modes(prefix, phase4):
+    """5. The other working dtypes and the caches on the phase-4 cohort:
+    RHE in float64 (mm_mode exact: no kernel launch) and bf16 (the kernels
+    with unsplit bf16 operands), cached and streaming, bitwise equal and
+    inside their envelopes of the float64 run; RHE-DOM bf16 cached and
+    streaming (ytg_acc2 with unsplit bf16 operands); RHE-DOM with
+    cache_blocks=40 (hybrid) and RHE streaming with the host cache off,
+    bitwise equal to phase 4's runs; a pinned against a pageable copy of
+    one staged block. Returns the bf16 path's launch counts."""
+    import torch
+    from pyrhe_tpu_torch import RHE, RHE_DOM, StreamingRHE, StreamingRHE_DOM
+    from pyrhe_tpu_torch.ops import kernels as K
+    tag = "[5 modes]"
+
+    def run(cls, **kw):
+        model, res, pt = _run_model(cls, prefix, **kw)
+        out = (model.engine.T_all, model.engine.q_all,
+               np.asarray(res["sigma_ests_total"]),
+               np.asarray(res["h2_total"]))
+        cfg = ", ".join(f"{k}={v}" for k, v in kw.items())
+        log(f"{tag} {cls.__name__}({cfg}) phases (s): {_fmt_phases(pt)}")
+        del model
+        torch.cuda.empty_cache()
+        return out, pt
+
+    K.reset_launch_counts()
+    f64 = {s: run(cls, dtype="float64")[0]
+           for s, cls in ((False, RHE), (True, StreamingRHE))}
+    if any(K.launches.values()):
+        raise AssertionError(f"float64 launched kernels: {K.launches}")
+    _assert_same("RHE float64 streaming vs cached", f64[True], f64[False])
+    K.reset_launch_counts()
+    bf16 = {s: run(cls, dtype="bfloat16")[0]
+            for s, cls in ((False, RHE), (True, StreamingRHE))}
+    dom = {s: run(cls, dtype="bfloat16")[0]
+           for s, cls in ((False, RHE_DOM), (True, StreamingRHE_DOM))}
+    launches = dict(K.launches)
+    log(f"{tag} launches in the four bf16 runs: {launches}")
+    for name in K.KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched by the bf16 "
+                                 "path")
+    _assert_same("RHE bf16 streaming vs cached", bf16[True], bf16[False])
+    _assert_same("RHE-DOM bf16 streaming vs cached", dom[True], dom[False])
+    g32 = _envelope("RHE float32 vs float64", phase4["RHE"]["cached"],
+                    f64[False], SPLIT2_RTOL, SPLIT2_RTOL)
+    gbf = _envelope("RHE bf16 vs float64", bf16[False], f64[False],
+                    BF16_RTOL_SIG, BF16_RTOL_H2)
+    log(f"{tag} cached == streaming bitwise in float64 (RHE) and bf16 (RHE, "
+        f"RHE-DOM); max |sigma^2| gap to float64, of max |sigma^2|: float32 "
+        f"split2 {g32[0]:.3e} (envelope {SPLIT2_RTOL}), bf16 {gbf[0]:.3e} "
+        f"({BF16_RTOL_SIG}); h2 gap float32 {g32[1]:.3e}, bf16 "
+        f"{gbf[1]:.3e}; total h2 float64 {f64[False][3][-1]:.5f}, float32 "
+        f"{phase4['RHE']['cached'][3][-1]:.5f}, bf16 "
+        f"{bf16[False][3][-1]:.5f}")
+
+    hybrid, _ = run(RHE_DOM, cache_blocks=40)
+    for key in ("cached", "streaming"):
+        _assert_same(f"RHE-DOM cache_blocks=40 vs phase 4 {key}", hybrid,
+                     phase4["RHE-DOM"][key])
+    off, pt = run(StreamingRHE, host_cache_gb=0)
+    if pt.get("host_cache_hits"):
+        raise AssertionError("host_cache_gb=0 still served blocks from RAM")
+    _assert_same("RHE streaming host cache off vs on", off,
+                 phase4["RHE"]["streaming"])
+    log(f"{tag} RHE-DOM cache_blocks=40 (hybrid) == phase 4 cached == "
+        "streaming bitwise; RHE streaming host cache off == on bitwise")
+    nbytes = 1024 * 100352 // 4        # one staged block's words
+    pinned, pageable = _h2d_ms(nbytes, True), _h2d_ms(nbytes, False)
+    log(f"{tag} H2D of one staged block ({nbytes / 1e6:.1f} MB): pinned "
+        f"{pinned:.4f} ms ({nbytes / pinned / 1e6:.1f} GB/s), pageable "
+        f"{pageable:.4f} ms ({nbytes / pageable / 1e6:.1f} GB/s)")
+    return launches
+
+
+def phase_exports(d, prefix):
+    """7. The exports on the example dataset (N = 5000, M = 10000, one bin,
+    no covariates, J = 10, B = 10) in float64, the card against the CPU
+    port: get_XtXz (results
+    and every .jack_j file at rtol 1e-10) and simulate_pheno (betas equal,
+    y at rtol 1e-10, the re-estimated sigma^2 at rtol 1e-8); then one CLI
+    run on the card with --profile_dir, whose Chrome trace must hold the
+    kernels' device activity."""
+    from pyrhe_tpu_torch import RHE, Logger
+    tag = "[7 exports]"
+    t0 = time.perf_counter()
+    out = {}
+    for device in ("cuda", "cpu"):
+        kw = dict(geno_file=prefix, annot_file=os.path.join(
+            d, "single.annot"), pheno_file=prefix + ".pheno",
+            num_jack=10, num_random_vec=10,
+            seed=42, dtype="float64", device=device,
+            log=Logger(suppress=True, debug_mode=False))
+        xtxz = RHE(**kw).get_XtXz(os.path.join(d, f"xtxz_{device}"))
+        sim = RHE(**kw)
+        y, betas = sim.simulate_pheno([0.3])
+        out[device] = (xtxz, y, betas, sim.estimate(0)[1])
+    (x, y, b, st), (x0, y0, b0, st0) = out["cuda"], out["cpu"]
+    checks = [("get_XtXz", x, x0, 1e-10), ("simulate_pheno y", y, y0, 1e-10),
+              ("sigma^2 after simulate_pheno", st, st0, 1e-8)]
+    for j in range(10):
+        checks.append((f"jack_{j}.txt.bin", *(
+            np.fromfile(os.path.join(d, f"xtxz_{dev}.jack_{j}.txt.bin"))
+            for dev in ("cuda", "cpu")), 1e-10))
+    for name, a, b_, rtol in checks:
+        if a.shape != b_.shape or not np.allclose(
+                a, b_, rtol=rtol, atol=rtol * np.abs(b_).max()):
+            raise AssertionError(f"{name}: card vs CPU differ beyond rtol "
+                                 f"{rtol}")
+    if not np.array_equal(b, b0):
+        raise AssertionError("simulate_pheno betas: card vs CPU differ")
+    log(f"{tag} get_XtXz ({x.shape}, 10 jackknife files) and simulate_pheno"
+        f" on the card == CPU float64 (rtol 1e-10; sigma^2 after it "
+        f"{st[0]:.8f} vs {st0[0]:.8f}): {time.perf_counter() - t0:.1f} s")
+
+    prof = os.path.join(d, "prof")
+    report = os.path.join(d, "cli_profile.txt")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "pyrhe_tpu_torch.cli", "-g", prefix,
+                    "-annot", os.path.join(d, "single.annot"), "-p",
+                    prefix + ".pheno", "-c", prefix + ".cov", "-k", "10",
+                    "-jn", "10", "-s", "42", "--profile_dir", prof, "-o",
+                    report, "--suppress"], check=True, cwd=ROOT)
+    with open(os.path.join(prof, "trace.json")) as f:
+        trace = f.read()
+    with open(report) as f:
+        said = f"Profiler trace written to {prof}" in f.read()
+    kernels = [k for k in ("gp_kernel", "ytg_kernel") if k in trace]
+    if not said or len(kernels) != 2:
+        raise AssertionError(f"--profile_dir: report line {said}, kernels "
+                             f"in the trace {kernels}")
+    log(f"{tag} CLI --profile_dir on the card: {len(trace) / 1e6:.1f} MB "
+        f"Chrome trace with {', '.join(kernels)} device events, "
+        f"{time.perf_counter() - t0:.1f} s wall")
 
 
 def _example(d):
@@ -640,7 +865,7 @@ def phase_small(d):
         if abs(g - c) > SPLIT2_RTOL * abs(c):
             raise AssertionError(f"{key}: cuda {g} vs cpu {c} outside the "
                                  f"split2 envelope rtol {SPLIT2_RTOL}")
-    log("[5 small] RHE example N=5000 M=10000: " + "; ".join(
+    log("[6 small] RHE example N=5000 M=10000: " + "; ".join(
         f"{k} cuda {vals['cuda'][k][0]:.8f} cpu {vals['cpu'][k][0]:.8f} "
         f"ref {REFERENCE_RUN[k][0]:.8f}" for k in REFERENCE_RUN))
 
@@ -655,7 +880,7 @@ def phase_small(d):
     for device, t in text.items():
         for path in goldens:
             _check_report_overlap(f"RHE-DOM {device}", _estimates(t), path)
-    log(f"[5 small] RHE-DOM example, 8 bins: max |sigma cuda - cpu| "
+    log(f"[6 small] RHE-DOM example, 8 bins: max |sigma cuda - cpu| "
         f"{gap:.3e} (atol {atol:.3e}); sigma2_e cuda {s_gpu[-1]:.8f} "
         f"cpu {s_cpu[-1]:.8f}; both within SE overlap of "
         + " and ".join(os.path.relpath(p, ROOT) for p in goldens))
@@ -680,7 +905,7 @@ def _small_genie(d, prefix):
     for device in est:
         for path in goldens:
             _check_report_overlap(f"GENIE {device}", est[device], path)
-    log(f"[5 small] GENIE G+GxE+NxE example, 8 bins, {len(est['cuda'])} "
+    log(f"[6 small] GENIE G+GxE+NxE example, 8 bins, {len(est['cuda'])} "
         f"estimates: max |sigma cuda - cpu| {gap:.3e} (atol {atol:.3e}); "
         f"Sigma^2_nxe[0] cuda {est['cuda']['Sigma^2_nxe[0]'][0]:.8f} cpu "
         f"{est['cpu']['Sigma^2_nxe[0]'][0]:.8f}; both within SE overlap of "
@@ -710,7 +935,7 @@ def _small_genie(d, prefix):
     ref_dir = os.path.join(ROOT, "example", "outputs", "reference", "trace",
                            "genie", name)
     _check_trace(tdir, ref_dir)
-    log(f"[5 small] GENIE CLI --config {name} --trace on the card: "
+    log(f"[6 small] GENIE CLI --config {name} --trace on the card: "
         f"{time.perf_counter() - t0:.1f} s wall; estimates equal to "
         f"GENIE(...)'s; .MN byte-identical to, .tr within rtol 2e-3 / atol "
         f"0.5 of {os.path.relpath(ref_dir, ROOT)}; .all.tr written")
@@ -753,9 +978,12 @@ def main():
     phase_build()
     kres = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="rhe_smoke_") as d:
-        launches = phase_main(d)
+        prefix, launches, phase4 = phase_main(d)
+        for name, n in phase_modes(prefix, phase4).items():
+            launches[name] += n
     with tempfile.TemporaryDirectory(prefix="rhe_smoke_ex_") as d:
         phase_small(d)
+        phase_exports(d, os.path.join(d, "test"))
     src = os.path.relpath(K._SRC, ROOT)
     kernels = [{
         "name": name, "route": "cuda", "source": src,

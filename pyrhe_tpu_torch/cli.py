@@ -5,20 +5,23 @@ import jax): the same flags as run_rhe.py plus an INI `--config` overlay
 with type coercion against argparse defaults (reference run_rhe.py:13-26,
 158-220), and the same report schema, so parse_output.py and other
 downstream regex parsers keep working. `--device` defaults to the CUDA
-card ("auto"); `--device cpu` runs the same path on the CPU. Flags for
-features the port does not run yet raise NotImplementedError naming their
-ROADMAP.md item; `--num_workers`, `--cuda_num` and `--stage_streams` are
-accepted for config compatibility and unused.
+card ("auto"); `--device cpu` runs the same path on the CPU.
+`--profile_dir d` wraps the trait loop in torch.profiler and writes a
+Chrome trace into d. `--checkpoint_dir`, which the port does not run yet,
+raises NotImplementedError naming its ROADMAP.md item; `--num_workers`,
+`--cuda_num` and `--stage_streams` are accepted for config compatibility
+and unused.
 """
 from __future__ import annotations
 
 import argparse
 import configparser
+import contextlib
+import os
 import time
 
 import numpy as np
 
-from .core.engine import unported
 from .models import (GENIE, RHE, RHE_DOM, StreamingGENIE, StreamingRHE,
                      StreamingRHE_DOM)
 from .utils.logger import Logger
@@ -111,10 +114,12 @@ def build_parser():
     parser.add_argument('--debug_output', type=str, default="test")
     parser.add_argument('--dtype', type=str, default=None,
                         choices=[None, 'float32', 'float64', 'bfloat16'],
-                        help='device compute dtype (default float32; '
-                             'the others are not ported yet)')
+                        help='working dtype (default float32, mm_mode '
+                             'split2; float64 runs mm_mode exact, bfloat16 '
+                             'mm_mode bf16)')
     parser.add_argument('--profile_dir', type=str, default=None,
-                        help='profiler trace of the run (not ported yet)')
+                        help='write a torch.profiler trace of the run '
+                             'into this directory')
     parser.add_argument('--checkpoint_dir', type=str, default=None,
                         help='directory for crash-safe resume snapshots; '
                              'a rerun with the same config resumes from '
@@ -175,9 +180,6 @@ def main(args):
         raise ValueError(
             'Must set both or neither of --samp-prev and --pop-prev.')
 
-    if args.profile_dir:
-        raise unported("the profiler trace (--profile_dir)", 12)
-
     params = {
         'geno_file': args.genotype,
         'annot_file': args.annotation,
@@ -223,15 +225,34 @@ def main(args):
 
     results = {}
     runtime = 0.0
-    for trait in range(rhe.num_traits):
-        start = time.time()
-        res_dict = rhe(trait=trait)
-        runtime = time.time() - start
-        results[f"Trait{trait}"] = {**res_dict, "runtime": runtime}
+    with _profiler(args.profile_dir, rhe.engine.dev) as prof:
+        for trait in range(rhe.num_traits):
+            start = time.time()
+            res_dict = rhe(trait=trait)
+            runtime = time.time() - start
+            results[f"Trait{trait}"] = {**res_dict, "runtime": runtime}
+    if prof is not None:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile_dir,
+                                              "trace.json"))
+        log._log(f"Profiler trace written to {args.profile_dir}")
 
     log._log("Runtime: ", runtime)
     log._save_log()
     return runtime
+
+
+def _profiler(profile_dir, device):
+    """torch.profiler over the host and, on the card, the device activity
+    when profile_dir is set (the reference's jax.profiler trace), else a
+    no-op context yielding None."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
 
 
 def cli_entry(argv=None):

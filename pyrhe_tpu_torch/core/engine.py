@@ -1,33 +1,45 @@
 """The RHE estimation engine on PyTorch: one device, blocks one at a time.
 
-Port of pyrhe_tpu/core/engine.py for RHE, RHE-DOM and GENIE in float32.
-Orchestrates the method-of-moments pipeline over jackknife blocks:
+Port of pyrhe_tpu/core/engine.py for RHE, RHE-DOM and GENIE in every
+working dtype. Orchestrates the method-of-moments pipeline over jackknife
+blocks:
 
   pass 1   for each SNP block j: host .bed read + imputation fills +
            missing-code clean (one block ahead, on a background thread)
            -> pinned host buffer -> non-blocking copy to the device ->
            decode + standardize + fused products (ops/moments) ->
-           accumulate totals; cache per-block stats unless streaming.
+           accumulate totals; cache the per-block stats of the first
+           `cache_limit` blocks unless streaming.
   pass 2   per-sample leave-one-out stats (total - block, GENIE's
            analytic NxE rows appended) -> assemble (T, q) on the device,
-           one jackknife sample at a time; the SUMRHE trace sums from the
-           assembled T when asked for (get_trace).
+           one jackknife sample at a time, walking the blocks in order:
+           cached blocks are popped, the others recomputed (all of them
+           when streaming); the SUMRHE trace sums from the assembled T when
+           asked for (get_trace).
   solve    QR per sample + jackknife SEs + h2/enrichment (core/solver.py,
            host float64).
 
-Streaming mode (cfg.streaming) recomputes block stats in pass 2 instead of
-caching them (O(E*N*B) device memory independent of J), and its pass 1
-adds each block straight into the totals through the aliased stage-2
-kernels (ops/kernels.ytg_acc_matmul, ytg_acc2_matmul for dominance). Both
-modes give bitwise-equal (T, q).
+Cache modes, all bitwise equal in (T, q): cached (every block's stats on
+the device), hybrid (the first cache_limit blocks: --cache_blocks, or as
+many as fit the device-memory budget), and streaming (nothing cached,
+O(E*N*B) device memory independent of J). In a kernel mode, blocks whose
+stats are not cached go into the totals through the aliased stage-2
+kernels (ops/kernels.ytg_acc_matmul, ytg_acc2_matmul for dominance).
+Streaming pass 2 serves the cleaned blocks from a host-RAM cache when they
+fit (host_cache_gb), so it does not read the .bed again.
+
+Working dtypes and mm_modes (the reference's): float32 -> split2,
+bfloat16 -> bf16 (working dtype float32), float64 -> exact. split2 and
+bf16 run the kernels; exact runs ops/moments.block_stats_core, torch
+products in the working dtype, and never the f32 acc kernels. On the CPU
+the kernels run as their plain versions and split2 takes f32 operands
+unsplit, as the reference runs its Pallas kernels in interpret mode; bf16
+keeps its bf16 operands there.
 
 Every trait's residualized phenotype is an extra probe column, so all
 traits share one precompute and only q differs per trait.
 
-The device is CUDA unless the caller asks for the CPU: there the fused
-products run as their plain PyTorch versions in f32 (no split), as the
-reference runs its Pallas kernels in interpret mode. On the card the
-probe-side operands are split into bf16 hi/lo halves (mm_mode split2).
+The device is CUDA unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -40,8 +52,10 @@ import numpy as np
 import torch
 
 from ..io.bed import clean_packed
+from ..ops.decode import imputed_dosages
 from ..ops.kernels import ROW_TILE, TN, pad_to, plane_permutation
-from ..ops.moments import acc_scan_stats, block_stats_pallas_core, nxe_stats
+from ..ops.moments import (acc_scan_stats, block_stats_core,
+                           block_stats_pallas_core, mm, nxe_stats)
 from ..utils.logger import Logger
 from ..utils.types import GenoImputeMethod
 from . import solver as S
@@ -96,36 +110,71 @@ class ModelSpec:
 @dataclass
 class RunConfig:
     """The reference's RunConfig without its TPU staging knobs
-    (use_pallas, stage_streams): the port always runs its kernels and
-    stages one block at a time."""
+    (use_pallas, stage_streams): the port runs its kernels in the kernel
+    mm_modes and stages one block at a time."""
     num_random_vec: int = 10
     num_jack: int = 100
     seed: int = 0
     geno_impute_method: str = "binary"
-    dtype: str = "float32"          # float32 (float64 | bfloat16: item 15)
+    dtype: str = "float32"          # float32 | float64 | bfloat16
     streaming: bool = False
     get_trace: bool = False         # SUMRHE trace sums (engine.trace_sums)
     trace_dir: str | None = None
     device: str = "auto"            # auto (= cuda) | cuda[:i] | cpu
-    mm_mode: str = "auto"           # auto | split2 (exact | bf16: item 15)
+    mm_mode: str = "auto"           # auto (from dtype) | exact | split2 | bf16
     checkpoint_dir: str | None = None   # checkpoint/resume: item 9
     checkpoint_every: int = 1
-    cache_blocks: int = -1          # -1 only (hybrid cache: item 8)
-    host_cache_gb: float = -1.0     # -1 / 0 only (host cache: item 8)
+    cache_blocks: int = -1          # stats-cache size in blocks: -1 = auto
+                                    # (fit the device budget, hybrid when
+                                    # short), 0 = cache nothing, J = all;
+                                    # ignored when streaming
+    host_cache_gb: float = -1.0     # host-RAM cache of cleaned blocks for
+                                    # streaming pass 2: -1 = auto (when it
+                                    # fits half of MemAvailable), 0 = off,
+                                    # > 0 = budget in GB
+
+
+# working dtype of each dtype setting; bfloat16 keeps float32 state and
+# runs the bf16 mm_mode (reference engine._DTYPES)
+DTYPES = {"float32": torch.float32, "float64": torch.float64,
+          "bfloat16": torch.float32}
+AUTO_MM_MODE = {"float32": "split2", "float64": "exact", "bfloat16": "bf16"}
+
+
+def resolve_mm_mode(cfg: RunConfig) -> str:
+    """The mm_mode a config runs (reference engine.py:150-153); raises on
+    an unknown dtype or mm_mode, and on a kernel mode with float64 state
+    (the kernels produce f32)."""
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"unsupported dtype {cfg.dtype!r} "
+                         f"({' | '.join(DTYPES)})")
+    mode = AUTO_MM_MODE[cfg.dtype] if cfg.mm_mode == "auto" else cfg.mm_mode
+    if mode not in ("exact", "split2", "bf16"):
+        raise ValueError(f"unsupported mm_mode {cfg.mm_mode!r} "
+                         "(auto | exact | split2 | bf16)")
+    if mode != "exact" and cfg.dtype == "float64":
+        raise ValueError(f"mm_mode {mode!r} runs the float32 kernels; "
+                         "float64 runs mm_mode 'exact'")
+    return mode
 
 
 def check_ported(cfg: RunConfig) -> None:
     """Raise for the settings the port does not run yet."""
-    if cfg.dtype != "float32":
-        raise unported(f"dtype {cfg.dtype!r}", 15)
-    if cfg.mm_mode not in ("auto", "split2"):
-        raise unported(f"mm_mode {cfg.mm_mode!r}", 15)
+    resolve_mm_mode(cfg)
     if cfg.checkpoint_dir:
         raise unported("checkpoint/resume (--checkpoint_dir)", 9)
-    if cfg.cache_blocks >= 0:
-        raise unported("the hybrid stats cache (--cache_blocks)", 8)
-    if cfg.host_cache_gb > 0:
-        raise unported("the host packed-block cache (--host_cache_gb)", 8)
+
+
+def mem_available_bytes() -> float:
+    """MemAvailable of /proc/meminfo, 0 where it cannot be read."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return float(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0.0
 
 
 def pick_device(device: str) -> torch.device:
@@ -219,9 +268,16 @@ class Engine:
         # any torch product on the card)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        # the card splits the probe side into bf16 hi/lo halves (split2);
-        # the CPU runs the plain f32 products unsplit
-        self.split = self.dev.type == "cuda"
+        self.dtype = DTYPES[cfg.dtype]
+        self.mm_mode = resolve_mm_mode(cfg)
+        # the block path's mode (ops/moments): the CPU runs split2 as the
+        # plain f32 products unsplit
+        self.mode = ("f32" if self.mm_mode == "split2"
+                     and self.dev.type == "cpu" else self.mm_mode)
+        if self.mm_mode == "exact":
+            self.log._log(
+                f"Note: mm_mode 'exact' ({cfg.dtype}): the fused kernels are "
+                "off; blocks run as torch products in the working dtype")
 
         self.K = data.num_bin
         self.B = cfg.num_random_vec
@@ -233,33 +289,92 @@ class Engine:
         self.use_cov = data.cov is not None
         self.b2 = self.B * (2 if self.use_cov else 1)
         self.n_pad = pad_to(data.bed.num_indiv, TN)
-
-        # The stats cache holds J blocks of (E_geno, b2, n_pad) f32 on the
-        # device; when that exceeds half of the free device memory, run
-        # streaming (the hybrid split of the reference is item 8).
-        cache_bytes = cfg.num_jack * self.E_geno * self.n_pad * 4 * self.b2
-        if not cfg.streaming and self.dev.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.dev)
-            if cache_bytes > 0.5 * free:
-                self.log._log(
-                    f"Note: per-block stats cache (~{cache_bytes / 1e9:.1f}"
-                    " GB) exceeds the device memory budget; using"
-                    " streaming (two-pass) mode")
-                self.cfg = dataclasses.replace(cfg, streaming=True)
+        self.cache_limit = self._plan_cache()
         self._build_static_arrays()
         self._cache: dict[int, tuple] = {}
+        self._host_cache = self._init_host_cache()
         self._tot = None
         self.M_mat = self._build_M_matrix()
         self.trace_sums = None
         # Cumulative per-phase seconds: host_read_s runs on the prefetch
         # thread overlapped with device work; h2d_s is device time of the
         # copies (CUDA events); pass1_s / pass2_s are wall time of each
-        # pass, ending in a device synchronize.
+        # pass, ending in a device synchronize; host_cache_hits counts the
+        # blocks served from the host cache.
         self.phase_times: dict[str, float] = {}
         self._h2d_events: list = []
 
     def _phase_add(self, name: str, dt: float):
         self.phase_times[name] = self.phase_times.get(name, 0.0) + dt
+
+    def _cache_budget(self) -> float:
+        """Bytes the per-block stats cache may take: half of the free
+        device memory on the card (the rest holds the totals, the staged
+        block and the working buffers); no limit on the CPU."""
+        if self.dev.type != "cuda":
+            return float("inf")
+        free, _ = torch.cuda.mem_get_info(self.dev)
+        return 0.5 * free
+
+    def _plan_cache(self) -> int:
+        """How many leading blocks pass 1 caches (reference
+        engine.py:160-203): J, or cfg.cache_blocks when set; when the full
+        cache exceeds the budget, as many blocks as fit beside a reserve of
+        4 block-equivalents (hybrid), and full streaming only when not one
+        fits (cfg.streaming is then switched on)."""
+        cfg = self.cfg
+        if cfg.streaming:
+            return 0
+        if cfg.cache_blocks >= 0:
+            limit = min(cfg.cache_blocks, self.J)
+            if limit < self.J:
+                self.log._log(
+                    f"Note: stats cache capped at {limit}/{self.J} blocks "
+                    "(--cache_blocks); the rest is recomputed in pass 2 "
+                    "(hybrid)")
+            return limit
+        per_block = (self.E_geno * self.b2 * self.n_pad
+                     * torch.finfo(self.dtype).bits // 8)
+        cache_bytes = self.J * per_block
+        budget = self._cache_budget()
+        if cache_bytes <= budget:
+            return self.J
+        fit = int(budget // per_block) - 4
+        if fit >= 1:
+            self.log._log(
+                f"Note: per-block stats cache (~{cache_bytes / 1e9:.1f} GB) "
+                f"exceeds the device memory budget; caching {fit}/{self.J} "
+                "blocks and recomputing the rest in pass 2 (hybrid)")
+            return fit
+        self.log._log(
+            f"Note: per-block stats cache (~{cache_bytes / 1e9:.1f} GB) "
+            "exceeds the device memory budget; using streaming (two-pass) "
+            "mode")
+        self.cfg = dataclasses.replace(cfg, streaming=True)
+        return 0
+
+    def _init_host_cache(self) -> dict | None:
+        """Host-RAM cache of the cleaned blocks for streaming pass 2
+        (reference engine.py:462-498): pass 1 keeps each block's staged
+        words and annot rows, pass 2 serves them instead of reading and
+        cleaning the .bed again — bitwise the same bytes (the fills are
+        deterministic). On only when streaming; cfg.host_cache_gb -1 =
+        auto (when the estimate fits half of MemAvailable), 0 = off, > 0 =
+        a budget in GB. The buffers stay pinned, so pass 2's copies run as
+        fast as pass 1's."""
+        gb = self.cfg.host_cache_gb
+        if not self.cfg.streaming or gb == 0:
+            return None
+        est = float((self.data.num_snp + self.J * ROW_TILE)
+                    * (self.n_pad // 4))
+        budget = gb * 1e9 if gb > 0 else 0.5 * mem_available_bytes()
+        if est > budget:
+            self.log._debug(f"host block cache off: needs ~{est / 1e9:.2f} "
+                            f"GB, budget {budget / 1e9:.2f} GB")
+            return None
+        self.log._debug(f"host block cache on (~{est / 1e9:.2f} GB): "
+                        "streaming pass 2 will not read the .bed again")
+        return {}
 
     # ------------------------------------------------------------------ setup
     def _build_static_arrays(self):
@@ -268,7 +383,8 @@ class Engine:
             (d.num_indv, 0))
         st = self.static = static_arrays_from_numpy(
             d.Z, d.Uzb, d.cov, d.Q, self.Y_resid, d.bed.keep_idx,
-            d.bed.num_indiv, self.dev, env=d.env if d.num_env else None)
+            d.bed.num_indiv, self.dev, dtype=self.dtype,
+            env=d.env if d.num_env else None)
         # border-trace rows estimated stochastically: GENIE rows k >= K
         # (reference genie.py:84-94); exact tr K = N elsewhere
         mask = np.zeros(self.E, dtype=bool)
@@ -316,11 +432,25 @@ class Engine:
                         np.where(rval < d0 + d1, 1.0, 2.0))
 
     def _load_block(self, j: int):
+        """Block j's host side, from the host cache when it holds the block
+        (counted in phase_times["host_cache_hits"]), else read and kept
+        there when the cache is on. Returns (words, annot, seconds)."""
+        cache = self._host_cache
+        if cache is not None and j in cache:
+            self._phase_add("host_cache_hits", 1.0)
+            return (*cache[j], 0.0)
+        words, annot, dt = self._load_block_uncached(j)
+        if cache is not None:
+            cache[j] = (words, annot)
+        return words, annot, dt
+
+    def _load_block_uncached(self, j: int):
         """Host side of block j (runs on the prefetch thread): packed .bed
         rows, imputation fills, and the missing codes rewritten with the
         (integral) fills into a zero-padded (m_pad, n_pad/4) byte buffer —
         pinned when the engine runs on the card — viewed as int32 words.
-        Returns (words, annot (m_pad, K) f32, seconds spent)."""
+        Returns (words, annot (m_pad, K) in the working dtype, seconds
+        spent)."""
         t0 = time.perf_counter()
         s, e = self._block_range(j)
         m = e - s
@@ -338,9 +468,9 @@ class Engine:
         out_np = out.numpy()
         clean_packed(packed, fill, out=out_np)
         out_np[m:] = 0
-        annot = torch.zeros((m_pad, self.K), dtype=torch.float32,
+        annot = torch.zeros((m_pad, self.K), dtype=self.dtype,
                             pin_memory=pin)
-        annot[:m] = torch.from_numpy(self.data.annot[s:e].astype(np.float32))
+        annot[:m] = torch.from_numpy(self.data.annot[s:e]).to(self.dtype)
         return out.view(torch.int32), annot, time.perf_counter() - t0
 
     def _to_device(self, words, annot):
@@ -373,14 +503,19 @@ class Engine:
                 yield self._to_device(words, annot)
 
     def _stat_kw(self) -> dict:
-        return dict(n_indiv=self.data.num_indv, b2=self.b2, split=self.split,
+        return dict(n_indiv=self.data.num_indv, b2=self.b2,
                     components=self.spec.components)
 
     def _block_stats(self, words, annot):
-        """Per-block stats in the kernels' (E_geno, b2, N) layout."""
+        """Per-block stats in the kernels' (E_geno, b2, N) layout, in the
+        working dtype."""
         st = self.static
-        XXP, yXXy, _ = block_stats_pallas_core(
-            words, annot, st.P, st.env, st.valid_mask, **self._stat_kw())
+        args = (words, annot, st.P, st.env, st.valid_mask)
+        if self.mode == "exact":
+            XXP, yXXy, _ = block_stats_core(*args, **self._stat_kw())
+        else:
+            XXP, yXXy, _ = block_stats_pallas_core(*args, mode=self.mode,
+                                                   **self._stat_kw())
         return XXP.transpose(1, 2), yXXy
 
     def _sync(self):
@@ -395,38 +530,53 @@ class Engine:
         self._h2d_events = []
 
     def precompute(self):
-        """Pass 1: accumulate totals (and cache block stats unless
-        streaming). Streaming adds each block into the totals in place
-        through the aliased kernel (ops/moments.acc_scan_stats)."""
+        """Pass 1: accumulate the totals in block order; the stats of the
+        first cache_limit blocks are kept for pass 2 (none when streaming).
+        In a kernel mode the other blocks add into the totals in place
+        through the aliased kernels (ops/moments.acc_scan_stats); mode
+        "exact" adds their standard stats, whose dtype the f32 acc kernels
+        do not take (reference engine._acc_fast_path). Bitwise the same
+        totals either way."""
         t0 = time.perf_counter()
         st = self.static
         tot_X = torch.zeros((self.E_geno, self.b2, self.n_pad),
-                            dtype=torch.float32, device=self.dev)
-        tot_y = torch.zeros((self.E_geno, self.T_traits),
-                            dtype=torch.float32, device=self.dev)
-        if self.cfg.streaming:
-            tot_X, tot_y = acc_scan_stats(
-                self._blocks(range(self.J)), st.P, st.env, st.valid_mask,
-                tot_X, tot_y, K=self.K, **self._stat_kw())
-        else:
-            for j, (words, annot) in enumerate(self._blocks(range(self.J))):
+                            dtype=self.dtype, device=self.dev)
+        tot_y = torch.zeros((self.E_geno, self.T_traits), dtype=self.dtype,
+                            device=self.dev)
+        blocks = self._blocks(range(self.J))
+        for j in range(self.cache_limit):
+            XXP, yXXy = self._block_stats(*next(blocks))
+            tot_X.add_(XXP)
+            tot_y = tot_y + yXXy
+            self._cache[j] = (XXP, yXXy)
+        if self.mode == "exact":
+            for words, annot in blocks:
                 XXP, yXXy = self._block_stats(words, annot)
-                tot_X = tot_X + XXP
+                tot_X.add_(XXP)
                 tot_y = tot_y + yXXy
-                self._cache[j] = (XXP, yXXy)
+        else:
+            tot_X, tot_y = acc_scan_stats(
+                blocks, st.P, st.env, st.valid_mask, tot_X, tot_y, K=self.K,
+                mode=self.mode, **self._stat_kw())
         self._tot = (tot_X, tot_y)
         self._end_pass("pass1_s", t0)
 
     # --------------------------------------------------------------- assembly
     def _loo_blocks(self):
-        """Per-block stats for pass 2: popped from the cache (so device
-        memory falls as samples are assembled) or recomputed (streaming)."""
-        if self.cfg.streaming:
-            for words, annot in self._blocks(range(self.J)):
-                yield self._block_stats(words, annot)
-        else:
-            for j in range(self.J):
+        """Per-block stats for pass 2, in block order (reference
+        engine.py:1104-1129): cached blocks are popped (so device memory
+        falls as samples are assembled), each run of uncached ones is
+        recomputed through one prefetching _blocks walk."""
+        j = 0
+        while j < self.J:
+            if j in self._cache:
                 yield self._cache.pop(j)
+                j += 1
+                continue
+            stop = min((k for k in self._cache if k > j), default=self.J)
+            for words, annot in self._blocks(range(j, stop)):
+                yield self._block_stats(words, annot)
+            j = stop
 
     def _assemble_one(self, X, y, j):
         """(T, q) of sample j from its (E_geno, b2, N) stats, with the NxE
@@ -472,6 +622,74 @@ class Engine:
         tr = self.T_all[:, :self.E, :self.E]
         return np.where(MM != 0, S.calc_lsum(tr, n, Mf[:, :, None],
                                              Mf[:, None, :]), 0.0)
+
+    # ----------------------------------------------------------- XtXz export
+    def get_XtXz(self, output: str, jackknife_blocks: bool = True):
+        """X^T X z sumstat export (reference engine.py:1215-1282): per-block
+        SNP-side probes Z_j from np.random.default_rng([seed, j]) over the
+        block's m SNPs; pass A forms Xz_j = g_j^T Z_j and Xz_total over the
+        imputed, UNstandardized dosages; pass B one wide product per block,
+        g_i [Xz_total | Xz_1 .. Xz_J]. Writes `<output>.txt.bin` (num_snp,
+        B) float64 and, per jackknife block j, `<output>.jack_j.txt.bin`:
+        g_i (Xz_total - Xz_j) with block j's own rows deleted; logs the
+        trace estimates ||XtXz||^2 / (B M^2). Products run at the engine's
+        mm_mode (ops/moments.mm). Returns the (num_snp, B) results."""
+        B, J, d = self.B, self.J, self.data
+        kw = dict(mm_mode=self.mm_mode, out_dtype=self.dtype)
+        Xz = []
+        for j, g in enumerate(self._iter_raw_blocks()):
+            s, e = self._block_range(j)
+            Z = np.random.default_rng([self.cfg.seed, j]).normal(
+                size=(e - s, B))
+            Xz.append(mm(g.T, torch.as_tensor(Z, dtype=self.dtype,
+                                              device=self.dev), **kw))
+        Xz_all = torch.stack(Xz)                      # (J, n_pad, B)
+        Xz_total = Xz_all.sum(dim=0)                  # (n_pad, B)
+        wide = torch.cat([Xz_total[:, :, None]]
+                         + ([Xz_all.permute(1, 2, 0)] if jackknife_blocks
+                            else []), dim=2).reshape(self.n_pad, -1)
+        results = np.zeros((d.num_snp, B))
+        cross = (np.zeros((d.num_snp, J, B)) if jackknife_blocks else None)
+        for j, g in enumerate(self._iter_raw_blocks()):
+            s, e = self._block_range(j)
+            out = mm(g, wide, **kw).cpu().numpy().astype(np.float64)
+            out = out.reshape(e - s, B, -1)
+            results[s:e] = out[:, :, 0]
+            if jackknife_blocks:
+                cross[s:e] = out[:, :, 1:].transpose(0, 2, 1)
+
+        trace_est = np.square(results).sum() / (B * d.num_snp ** 2)
+        self.log._debug(f"The trace estimate is {trace_est}")
+        with open(f"{output}.txt.bin", "wb") as f:
+            results.tofile(f)
+        if jackknife_blocks:
+            for j in range(J):
+                s, e = self._block_range(j)
+                loo = np.delete(results - cross[:, j, :], np.s_[s:e], axis=0)
+                jk_trace = np.square(loo).sum() / (B * loo.shape[0] ** 2)
+                self.log._debug(f"The trace estimate of {j}-th jackknife "
+                                f"block is {jk_trace}")
+                with open(f"{output}.jack_{j}.txt.bin", "wb") as f:
+                    loo.tofile(f)
+        return results
+
+    def _iter_raw_blocks(self, dtype: torch.dtype | None = None):
+        """Yield each block's imputed, UNstandardized dosages (m, n_pad) on
+        the device in dtype (default the working dtype), plane-permuted,
+        zero at dropped and padding individuals (ops/decode)."""
+        dtype = dtype or self.dtype
+        for j, (words, _) in enumerate(self._blocks(range(self.J))):
+            s, e = self._block_range(j)
+            yield imputed_dosages(words, e - s, self.static.valid_mask, dtype)
+
+    def unpermute(self, x) -> np.ndarray:
+        """(n_pad, ...) rows in the plane-permuted padded order -> (N, ...)
+        host rows of the kept individuals in file order."""
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        natural = np.empty_like(x)
+        natural[self.static.perm] = x
+        keep = self.data.bed.keep_idx
+        return natural[:self.data.num_indv] if keep is None else natural[keep]
 
     # -------------------------------------------------------------- estimate
     def run_precompute_and_assemble(self):

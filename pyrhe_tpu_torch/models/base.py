@@ -16,10 +16,10 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from ..core.data import load_dataset
-from ..core.engine import (Engine, ModelSpec, RunConfig, check_ported,
-                           unported)
+from ..core.engine import Engine, ModelSpec, RunConfig, check_ported
 from ..core import solver as S
 from ..utils.logger import Logger
 
@@ -212,10 +212,51 @@ class BaseModel:
                     fd.write(row + f",{self.engine.M_mat[j, k]:.0f}\n")
 
     def get_XtXz(self, output: str, jackknife_blocks: bool = True):
-        raise unported("get_XtXz", 12)
+        """X^T X z sumstat export (reference models/base.py:250-252,
+        core/engine.get_XtXz)."""
+        return self.engine.get_XtXz(output, jackknife_blocks)
 
     def simulate_pheno(self, sigma_list):
-        raise unported("simulate_pheno", 12)
+        """Simulate y = sum_k X_k beta_k (+ cov effect) + e over the
+        imputed, unstandardized dosages and install it as the phenotype
+        (reference models/base.py:254-289): beta ~ N(0, sigma_k / M_k) per
+        SNP of bin k from RandomState(seed), g^T beta accumulated per block
+        in float64 on the device, then the noise and covariate effect on
+        the host. Rebuilds the engine (the phenotype rides the probe
+        matrix). Returns (y, betas)."""
+        d = self.data
+        if len(sigma_list) != d.num_bin:
+            raise ValueError("Number of elements in sigma list should be "
+                             "equal to number of bins")
+        rng = np.random.RandomState(self.seed)
+        len_bin = d.len_bin.astype(np.float64)
+        scale_per_bin = np.sqrt(
+            np.where(len_bin > 0, np.asarray(sigma_list) /
+                     np.maximum(len_bin, 1), 0.0))
+        betas = np.zeros(d.num_snp)
+        eng = self.engine
+        gb = torch.zeros(eng.n_pad, dtype=torch.float64, device=eng.dev)
+        for j, g in enumerate(eng._iter_raw_blocks(torch.float64)):
+            s, e = eng._block_range(j)
+            beta = rng.randn(e - s) * (d.annot[s:e] @ scale_per_bin)
+            betas[s:e] = beta
+            gb += torch.as_tensor(beta, device=eng.dev) @ g
+        y = eng.unpermute(gb)
+        resid = 1.0 - float(np.sum(sigma_list))
+        y += rng.randn(d.num_indv) * np.sqrt(max(resid, 0.0))
+        if d.cov is not None:
+            y = y + d.cov @ np.ones(d.cov.shape[1])
+        y = y - y.mean()
+        d.pheno = y[:, None]
+        d.binary_pheno = False
+        self._reset_engine()
+        return y, betas
+
+    def _reset_engine(self):
+        """Rebuild the engine after the phenotype changed (the phenotype
+        rides the probe matrix, so precompute must rerun)."""
+        self.engine = Engine(self.data, self.spec, self.cfg, self.log)
+        self._computed = False
 
     def run(self, method: str = "QR", trait: int = 0):
         raise NotImplementedError

@@ -46,9 +46,9 @@ import tempfile
 import numpy as np
 import torch
 
-TN = 2048           # plane-permutation period (individuals); n_pad multiple
+from .decode import PLANES, TN, decode_words
+
 ROW_TILE = 32       # SNP rows: the kernels take m_pad % ROW_TILE == 0
-PLANES = 16         # codes per int32 word
 GP_ROWS = 128       # SNP rows per gp block (csrc/rhe_kernels.cu GP_ROWS)
 GP_BLOCKS = 512     # gp_splits aims at no more than this many row x K blocks
 
@@ -187,22 +187,6 @@ def _launch_device(words: torch.Tensor) -> bool:
 
 
 # ------------------------------------------------------- plain versions
-def decode_words(words: torch.Tensor, square: bool = False) -> torch.Tensor:
-    """(m_pad, n_pad/16) int32 cleaned words -> (m_pad, n_pad) f32
-    dosages (dosage² when square) in plane order."""
-    m_pad, nw = words.shape
-    w = words.to(torch.int64) & 0xFFFFFFFF
-    h = (w >> 1) & 0x55555555
-    d = h + (h & w)
-    shifts = torch.arange(0, 2 * PLANES, 2, device=words.device)
-    planes = (d[:, :, None] >> shifts) & 3                 # (m, nw, 16)
-    if square:
-        planes = planes + (planes & 2)                     # 0,1,2 -> 0,1,4
-    return (planes.view(m_pad, nw // (TN // PLANES), TN // PLANES, PLANES)
-            .permute(0, 1, 3, 2).reshape(m_pad, nw * PLANES)
-            .to(torch.float32))
-
-
 def gp_plain(words: torch.Tensor, C: torch.Tensor,
              square: bool = False) -> torch.Tensor:
     return decode_words(words, square) @ C.float()

@@ -1,9 +1,10 @@
 """Fused per-block randomized-moment computation — the hot path.
 
-Port of pyrhe_tpu/ops/moments.py for the kernel path (the reference's
+Port of pyrhe_tpu/ops/moments.py: the kernel path (the reference's
 `mm2_t` branch of `_moment_algebra`, `block_stats_pallas_core`,
-`block_stats_pallas_acc_core` and `acc_scan_stats`), for additive (RHE,
-GxE) and dominance (RHE-DOM) components, and GENIE's analytic NxE stats
+`block_stats_pallas_acc_core` and `acc_scan_stats`), the exact path
+(`block_stats_core`) and `_mm` (`mm`), for additive (RHE, GxE) and
+dominance (RHE-DOM) components, and GENIE's analytic NxE stats
 (`nxe_stats`). For one jackknife block of m SNPs every statistic comes
 from products over the decoded dosages g:
 
@@ -18,21 +19,29 @@ product per stage (`square=True`: G2P = g² @ C_all, XXG2 = Y2ᵀ @ g²); the
 aliased core takes both of its stage-2 products in one launch
 (ops/kernels.ytg_acc2_matmul).
 
-Precision: dosages are exact in bf16, so only the probe side limits
-accuracy. split=True (split2, the float32 mode on the card) splits the
-probe-side operand into bf16 hi + lo halves stacked side by side (stage 1)
-or on rows (stage 2) and sums the two halves of the f32 result;
-split=False (the CPU) runs the products in f32. The working dtype is
-float32.
+Precision modes (`mode`; the engine resolves the reference's mm_mode):
+dosages are exact in bf16, so only the probe side limits accuracy.
+  - "split2": the probe-side operand split into bf16 hi + lo halves
+    stacked side by side (stage 1) or on rows (stage 2), the two halves of
+    the f32 result summed — the float32 mode on the card;
+  - "bf16": the probe side cast to bf16 once, one pass (~1e-3 relative);
+  - "f32": f32 operands unsplit — the CPU's stand-in for split2, where the
+    kernels run as their plain versions;
+  - "exact": no kernel. `block_stats_core` (the reference's non-Pallas
+    block_stats_core) decodes g in the working dtype (ops/decode.py) and
+    runs both products as torch.matmul in that dtype — float64 runs this
+    mode. The algebra after the products is shared, in the working dtype.
 
 Inputs follow the kernels' layout contract: N-indexed arrays are padded
 to n_pad and plane-permuted (ops/kernels.plane_permutation), SNP rows are
 padded to m_pad with zero annot rows; padded and filtered individuals are
 zeroed by `valid_mask`.
 
-The standard core and the aliased (acc) core share `_prepare` — stage 1,
-the standardization scalars, the U rows and the stage-2 operands — so the
-acc path's bit-identity with the standard path cannot drift.
+The kernel cores (standard and aliased acc) and the exact core share
+`_prepare` — stage 1, the standardization scalars, the U rows and the
+stage-2 operands — and the standard and exact cores share
+`_block_stats`, stage 2 and its epilogue, so the acc path's bit-identity
+with the standard path cannot drift.
 """
 from __future__ import annotations
 
@@ -40,8 +49,30 @@ from typing import NamedTuple
 
 import torch
 
+from .decode import decode_words
 from .kernels import (gp_matmul, sum_halves, ytg_acc2_matmul, ytg_acc_matmul,
                       ytg_matmul)
+
+KERNEL_MODES = ("split2", "bf16", "f32")
+
+
+def mm(a, b, mm_mode, out_dtype):
+    """a @ b with dosage-exact mixed precision (reference ops/moments._mm):
+    `a` holds small integers, exact in bf16; `b` is the probe side.
+    "exact" multiplies in out_dtype; "bf16" rounds both operands to bf16
+    and accumulates in f32; "split2" splits b into bf16 hi + lo and sums
+    the two f32 products. torch.matmul throughout (the reference runs
+    these as jnp.dot outside any Pallas kernel)."""
+    if mm_mode == "exact":
+        return a.to(out_dtype) @ b.to(out_dtype)
+    a32 = a.to(torch.bfloat16).float()
+    if mm_mode == "bf16":
+        return (a32 @ b.to(torch.bfloat16).float()).to(out_dtype)
+    if mm_mode == "split2":
+        hi = b.to(torch.bfloat16)
+        lo = (b - hi.to(b.dtype)).to(torch.bfloat16)
+        return (a32 @ hi.float() + a32 @ lo.float()).to(out_dtype)
+    raise ValueError(f"unknown mm_mode {mm_mode!r}")
 
 
 def _colsum(x):
@@ -119,22 +150,58 @@ def _component_stats(kind, U, annot_f, b2, d, mean_stat, alpha=None):
     return ys, alpha[:, None] * Yd, -Yd, rank1
 
 
-def _stage1(words, C_all, split, square=False):
+def _stage1(words, C_all, mode, square=False):
     """GP = g @ C_all (g² @ C_all when square, f32), through ONE
-    gp_matmul launch."""
+    gp_matmul launch on the mode's probe-side operand."""
     C32 = C_all.float()
-    if split:
+    if mode == "split2":
         out = gp_matmul(words, _hilo(C32, 1).contiguous(), square)
         W = C_all.shape[1]
         return out[:, :W] + out[:, W:]
+    if mode == "bf16":
+        return gp_matmul(words, C32.to(torch.bfloat16).contiguous(), square)
     return gp_matmul(words, C32.contiguous(), square)
 
 
-def _prep_yt(Y, split):
+def _prep_yt(Y, mode):
     """(m_pad, Q) stage-2 operand -> the kernels' (Qr, m_pad) Yt: hi/lo
-    bf16 halves stacked on rows when split, else f32."""
+    bf16 halves stacked on rows (split2), bf16 (bf16), else f32."""
     Yt = Y.float().T
-    return (_hilo(Yt, 0) if split else Yt).contiguous()
+    if mode == "split2":
+        return _hilo(Yt, 0).contiguous()
+    if mode == "bf16":
+        return Yt.to(torch.bfloat16).contiguous()
+    return Yt.contiguous()
+
+
+def _kernel_products(words, mode):
+    """(gp, ytg) through the kernels: gp(C, square) -> (m_pad, W) f32,
+    ytg(Y, square) -> (Q, n_pad) f32 from an (m_pad, Q) operand."""
+    def gp(C, square=False):
+        return _stage1(words, C, mode, square)
+
+    def ytg(Y, square=False):
+        return sum_halves(ytg_matmul(words, _prep_yt(Y, mode), square),
+                          mode == "split2")
+    return gp, ytg
+
+
+def _exact_products(words, dtype):
+    """(gp, ytg) as torch.matmul on g decoded in dtype (mode "exact"); g²
+    is formed once, on first use."""
+    g = {False: decode_words(words, dtype=dtype)}
+
+    def dos(square):
+        if square not in g:
+            g[True] = g[False] * g[False]
+        return g[square]
+
+    def gp(C, square=False):
+        return dos(square) @ C
+
+    def ytg(Y, square=False):
+        return Y.T @ dos(square)
+    return gp, ytg
 
 
 def _check_components(components):
@@ -158,20 +225,21 @@ class _Comp(NamedTuple):
     eidx: int | None            # env column scaling the stats, or None
 
 
-def _prepare(words, annot_f, P_perm, env_perm, valid_mask, *, n_indiv,
-             components, b2, split):
-    """Stage 1 + standardization algebra + per-component stage-2
-    operands, shared by both cores. Returns one _Comp per component."""
+def _prepare(gp, annot_f, P_perm, env_perm, valid_mask, *, n_indiv,
+             components, b2):
+    """Stage 1 (through gp, see _kernel_products) + standardization
+    algebra + per-component stage-2 operands, shared by every core.
+    Returns one _Comp per component."""
     _check_components(components)
     Bp = P_perm.shape[1]
     variants, C_all = _stage1_cols(components, P_perm, env_perm,
                                    valid_mask[:, None])
     csum = _colsum(C_all)
-    GP = _stage1(words, C_all, split)                # (m_pad, 1 + Bp*V)
+    GP = gp(C_all)                                   # (m_pad, 1 + Bp*V)
     mean = GP[:, 0] / n_indiv
     d_add = _add_scale(mean)
     if any(kind == "dom" for kind, _ in components):
-        G2P = _stage1(words, C_all, split, square=True)
+        G2P = gp(C_all, square=True)
         d_dom, alpha, mean_enc = _dom_scales(mean, G2P[:, 0] / n_indiv)
     out = []
     for kind, eidx in components:
@@ -189,37 +257,20 @@ def _prepare(words, annot_f, P_perm, env_perm, valid_mask, *, n_indiv,
     return out
 
 
-def block_stats_pallas_core(
-    words,          # (m_pad, n_pad/16) int32 cleaned words, rows zero-padded
-    annot_f,        # (m_pad, K) f32, zero rows for padded SNPs
-    P_perm,         # (n_pad, Bp) f32 probes in plane-permuted order
-    env_perm,       # (n_pad, num_env) plane-permuted, or None
-    valid_mask,     # (n_pad,) 1.0 for kept individuals, 0.0 elsewhere
-    *,
-    n_indiv: int,
-    components: tuple,   # (("add", env_idx|None), ...)
-    b2: int,             # probe columns that participate in XXP (B or 2B)
-    split: bool,
-):
-    """Per-block stats through the fused kernels. Returns
-    (XXP (n_comp*K, N, b2), yXXy (n_comp*K, T), M (n_comp*K,)); XXP is a
-    transposed view of a contiguous (n_comp*K, b2, N) tensor, the
-    kernels' layout, with N in plane-permuted order (invisible downstream:
-    every consumer contracts over individuals with equally-permuted
-    arrays). Stage 2 is ONE ytg_matmul over all components' g-side
-    columns, plus ONE square ytg_matmul over the stacked dominance
-    columns when there are any."""
+def _block_stats(gp, ytg, annot_f, P_perm, env_perm, valid_mask, *,
+                 n_indiv, components, b2):
+    """The standard core over the products gp and ytg (_kernel_products or
+    _exact_products): stage 1, the algebra, ONE stage-2 product over all
+    components' g-side columns plus ONE square product over the stacked
+    dominance columns when there are any, and the epilogue."""
     m, K = annot_f.shape
     N = P_perm.shape[0]
-    comps = _prepare(words, annot_f, P_perm, env_perm, valid_mask,
-                     n_indiv=n_indiv, components=components, b2=b2,
-                     split=split)
-    YG = torch.cat([c.Y for c in comps], dim=1)         # (m, n_comp*K*b2)
-    XXG = sum_halves(ytg_matmul(words, _prep_yt(YG, split)), split)
+    comps = _prepare(gp, annot_f, P_perm, env_perm, valid_mask,
+                     n_indiv=n_indiv, components=components, b2=b2)
+    XXG = ytg(torch.cat([c.Y for c in comps], dim=1))   # (n_comp*K*b2, N)
     dom_cols = [c.Y2 for c in comps if c.kind == "dom"]
     if dom_cols:
-        XXG2 = sum_halves(ytg_matmul(
-            words, _prep_yt(torch.cat(dom_cols, dim=1), split), True), split)
+        XXG2 = ytg(torch.cat(dom_cols, dim=1), True)
     q = K * b2
     parts = []
     dom_off = 0
@@ -239,6 +290,42 @@ def block_stats_pallas_core(
     return XXP, yXXy, torch.cat([M_blk] * len(components))
 
 
+def block_stats_pallas_core(
+    words,          # (m_pad, n_pad/16) int32 cleaned words, rows zero-padded
+    annot_f,        # (m_pad, K) f32, zero rows for padded SNPs
+    P_perm,         # (n_pad, Bp) f32 probes in plane-permuted order
+    env_perm,       # (n_pad, num_env) plane-permuted, or None
+    valid_mask,     # (n_pad,) 1.0 for kept individuals, 0.0 elsewhere
+    *,
+    n_indiv: int,
+    components: tuple,   # (("add", env_idx|None), ...)
+    b2: int,             # probe columns that participate in XXP (B or 2B)
+    mode: str,           # "split2" | "bf16" | "f32" (KERNEL_MODES)
+):
+    """Per-block stats through the fused kernels, in float32. Returns
+    (XXP (n_comp*K, N, b2), yXXy (n_comp*K, T), M (n_comp*K,)); XXP is a
+    transposed view of a contiguous (n_comp*K, b2, N) tensor, the
+    kernels' layout, with N in plane-permuted order (invisible downstream:
+    every consumer contracts over individuals with equally-permuted
+    arrays)."""
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"mode {mode!r} is not a kernel mode {KERNEL_MODES}")
+    return _block_stats(*_kernel_products(words, mode), annot_f, P_perm,
+                        env_perm, valid_mask, n_indiv=n_indiv,
+                        components=components, b2=b2)
+
+
+def block_stats_core(words, annot_f, P_perm, env_perm, valid_mask, *,
+                     n_indiv: int, components: tuple, b2: int):
+    """block_stats_pallas_core in mode "exact" (the reference's non-Pallas
+    block_stats_core): g decoded in P_perm's dtype (the working dtype,
+    float64 or float32) and both products as torch.matmul in it; the same
+    layout, algebra and returns."""
+    return _block_stats(*_exact_products(words, P_perm.dtype), annot_f,
+                        P_perm, env_perm, valid_mask, n_indiv=n_indiv,
+                        components=components, b2=b2)
+
+
 def block_stats_pallas_acc_core(
     words, annot_f, P_perm, env_perm, valid_mask,
     tot_list,       # per-component (K*b2, n_pad) f32 totals, updated in place
@@ -246,7 +333,7 @@ def block_stats_pallas_acc_core(
     n_indiv: int,
     components: tuple,
     b2: int,
-    split: bool,
+    mode: str,
 ):
     """Specialization of block_stats_pallas_core whose stage 2 adds into
     the running totals (ops/kernels.ytg_acc_matmul; ytg_acc2_matmul for
@@ -255,29 +342,33 @@ def block_stats_pallas_acc_core(
     env-scale / mask transform and the totals update run in the kernel
     epilogue, one launch per component, each updating its own totals in
     place (GxE components pass their env column as the kernel's scale
-    operand). Only usable where nothing needs the per-block stats:
-    streaming pass 1. Bit-identical to the standard path plus
-    `tot + XXP`: identical products, identical f32 transform order
-    (rank1 − → ×scale → ×mask, with ×1.0 an IEEE identity for
-    scale-free components; dominance: (XXG + XXG2) − rank1 → ×mask).
+    operand). Only usable where nothing needs the per-block stats
+    (streaming pass 1 and the uncached blocks of a hybrid pass 1), and
+    only in a kernel mode: the totals are f32. Bit-identical to the
+    standard path plus `tot + XXP`: identical products, identical f32
+    transform order (rank1 − → ×scale → ×mask, with ×1.0 an IEEE
+    identity for scale-free components; dominance: (XXG + XXG2) − rank1 →
+    ×mask).
 
     Returns (tot_list, yXXy (n_comp*K, T))."""
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"mode {mode!r} is not a kernel mode {KERNEL_MODES}")
     N = P_perm.shape[0]
-    comps = _prepare(words, annot_f, P_perm, env_perm, valid_mask,
-                     n_indiv=n_indiv, components=components, b2=b2,
-                     split=split)
+    comps = _prepare(_kernel_products(words, mode)[0], annot_f, P_perm,
+                     env_perm, valid_mask, n_indiv=n_indiv,
+                     components=components, b2=b2)
+    split = mode == "split2"
     ones_n = torch.ones((1, N), dtype=torch.float32, device=P_perm.device)
     mask_row = valid_mask[None, :].float().contiguous()
     for c, tot in zip(comps, tot_list):
         rank1 = c.rank1[:, None].float().contiguous()
         if c.kind == "dom":
-            ytg_acc2_matmul(words, _prep_yt(c.Y, split),
-                            _prep_yt(c.Y2, split), rank1, mask_row, tot,
-                            split=split)
+            ytg_acc2_matmul(words, _prep_yt(c.Y, mode), _prep_yt(c.Y2, mode),
+                            rank1, mask_row, tot, split=split)
             continue
         scale = (ones_n if c.eidx is None
                  else env_perm[:, c.eidx][None, :].float().contiguous())
-        ytg_acc_matmul(words, _prep_yt(c.Y, split), rank1, scale, mask_row,
+        ytg_acc_matmul(words, _prep_yt(c.Y, mode), rank1, scale, mask_row,
                        tot, split=split)
     return tot_list, torch.cat([c.ys for c in comps], dim=0)
 

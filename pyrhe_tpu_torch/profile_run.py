@@ -1,12 +1,14 @@
 """Device-time breakdown of one model's passes on the CUDA card.
 
     python -m pyrhe_tpu_torch.profile_run [--model rhe|rhe_dom|genie]
+        [--dtype float32|float64|bfloat16 ...]
 
 Synthesizes the cohort of chip_smoke.py phase 4 (pyrhe_tpu_torch.cohort:
 N = M = 100,000, 8 bins, 4 covariates, 2 environments, J = 100, B = 10;
 GENIE runs G+GxE+NxE), runs the model once to warm the kernels and the
 page cache, then profiles pass 1 + pass 2 (Engine.run_precompute_and_assemble)
-of one cached and one streaming run with torch.profiler. Prints per run:
+of one cached and one streaming run with torch.profiler, for each --dtype
+in turn (default float32). Prints per run:
 wall time of the window, device busy time (sum of the device activities:
 kernels and copies run one at a time on the engine's one stream) split
 into the port's kernels (csrc/rhe_kernels.cu), host-to-device copies and
@@ -76,6 +78,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=["rhe", "rhe_dom", "genie"],
                     default="rhe_dom")
+    ap.add_argument("--dtype", choices=["float32", "float64", "bfloat16"],
+                    default=["float32"], nargs="+")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_run needs a CUDA card")
@@ -86,14 +90,15 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="rhe_prof_") as d:
         prefix = cohort.make(os.path.join(d, "cohort"))
         kw = cohort.genie_kw(prefix) if args.model == "genie" else {}
-        profile_model(classes[1], prefix, **kw)             # warm-up
-        for cls in classes:
-            summary, rows = profile_model(cls, prefix, **kw)
-            print(f"== {args.model} {cls.__name__}: " + ", ".join(
-                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                for k, v in summary.items()))
-            for name, ms, calls in rows[:25]:
-                print(f"   {ms:10.3f} ms {calls:7d}  {name[:90]}")
+        for dtype in args.dtype:
+            profile_model(classes[1], prefix, dtype=dtype, **kw)  # warm-up
+            for cls in classes:
+                summary, rows = profile_model(cls, prefix, dtype=dtype, **kw)
+                print(f"== {args.model} {dtype} {cls.__name__}: " + ", ".join(
+                    f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in summary.items()))
+                for name, ms, calls in rows[:25]:
+                    print(f"   {ms:10.3f} ms {calls:7d}  {name[:90]}")
 
 
 if __name__ == "__main__":

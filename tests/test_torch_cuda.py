@@ -1,7 +1,9 @@
 """PyTorch port on the CUDA card: each kernel against its plain version at
 edge shapes (ragged stage-2 rows, several stage-1 column tiles, one row
-tile), and the engine on the card against the port on the CPU. Every test
-here needs a card and skips without one. The module imports neither jax
+tile) with f32, split2 and unsplit bf16 operands; the engine on the card
+against the port on the CPU (float32, and float64 at rtol 1e-10); bf16
+streaming == cached, and the hybrid and host caches bitwise equal to the
+full cache. Every test here needs a card and skips without one. The module imports neither jax
 nor the JAX package, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -143,6 +145,8 @@ def test_cuda_gp_split_k(cuda_device, operand, W, m, n):
 @pytest.mark.parametrize("m,n,Q", [
     (20, 700, 7),             # m_pad 32 (two k16 steps), 14 split rows
     (300, 2500, 40),          # several row and word tiles, ragged rows
+    (1000, 4096, 160),        # RHE's 160 rows: unsplit bf16 takes 2.5
+                              # 64-row tiles, split 5 32-row ones
     (1000, 4096, 320),        # 640 split rows: RHE-DOM's g-side ytg
 ])
 def test_cuda_ytg_family(cuda_device, square, operand, m, n, Q):
@@ -213,6 +217,24 @@ def dataset(tmp_path_factory):
             str(d / "test.env"))
 
 
+def run_engine(dataset, model, device, **cfg):
+    """One engine run on the module's dataset (GENIE: G+GxE+NxE, two
+    environments)."""
+    from pyrhe_tpu_torch.core.data import load_dataset
+    from pyrhe_tpu_torch.core.engine import Engine, ModelSpec, RunConfig
+
+    prefix, annot, cov, env = dataset
+    data = load_dataset(prefix, annot_file=annot,
+                        pheno_file=prefix + ".pheno", cov_file=cov,
+                        env_file=env if model == "genie" else None,
+                        num_random_vec=6, seed=7)
+    eng = Engine(data, ModelSpec.build(model, "G+GxE+NxE", data.num_env),
+                 RunConfig(num_random_vec=6, num_jack=6, seed=7,
+                           device=device, **cfg))
+    eng.run_precompute_and_assemble()
+    return eng
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("model", ["rhe", "rhe_dom", "genie"])
 def test_cuda_engine_matches_cpu_and_streaming(cuda_device, dataset, model):
@@ -220,25 +242,10 @@ def test_cuda_engine_matches_cpu_and_streaming(cuda_device, dataset, model):
     streaming bitwise on the card; GENIE runs G+GxE+NxE with two
     environments (env-scaled gp columns, the env column as ytg_acc's
     scale, analytic NxE rows)."""
-    from pyrhe_tpu_torch.core.data import load_dataset
-    from pyrhe_tpu_torch.core.engine import Engine, ModelSpec, RunConfig
-
-    prefix, annot, cov, env = dataset
-
-    def run(device, streaming):
-        data = load_dataset(prefix, annot_file=annot,
-                            pheno_file=prefix + ".pheno", cov_file=cov,
-                            env_file=env if model == "genie" else None,
-                            num_random_vec=6, seed=7)
-        eng = Engine(data, ModelSpec.build(model, "G+GxE+NxE",
-                                           data.num_env),
-                     RunConfig(num_random_vec=6, num_jack=6, seed=7,
-                               device=device, streaming=streaming))
-        eng.run_precompute_and_assemble()
-        return eng
-
-    cpu, cached, streaming = (run("cpu", False), run("cuda", False),
-                              run("cuda", True))
+    cpu, cached, streaming = (run_engine(dataset, model, "cpu"),
+                              run_engine(dataset, model, "cuda"),
+                              run_engine(dataset, model, "cuda",
+                                         streaming=True))
     np.testing.assert_array_equal(streaming.T_all, cached.T_all)
     np.testing.assert_array_equal(streaming.q_all, cached.q_all)
     _, st_cpu = cpu.estimate(0)
@@ -246,3 +253,55 @@ def test_cuda_engine_matches_cpu_and_streaming(cuda_device, dataset, model):
     # split2 envelope (tests/test_engine_vs_oracle.py)
     np.testing.assert_allclose(st, st_cpu, rtol=3e-4,
                                atol=3e-4 * np.abs(st_cpu).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rhe", "rhe_dom", "genie"])
+def test_cuda_float64_matches_cpu(cuda_device, dataset, model):
+    """float64 (mm_mode exact: torch products, no kernel) on the card
+    against the CPU at rtol 1e-10 (atol 1e-12 of the largest entry), and
+    streaming == cached bitwise on the card."""
+    cpu = run_engine(dataset, model, "cpu", dtype="float64")
+    cached = run_engine(dataset, model, "cuda", dtype="float64")
+    streaming = run_engine(dataset, model, "cuda", dtype="float64",
+                           streaming=True)
+    assert cached.mode == "exact"
+    for got, want in ((cached.T_all, cpu.T_all), (cached.q_all, cpu.q_all)):
+        np.testing.assert_allclose(got, want, rtol=1e-10,
+                                   atol=1e-12 * np.abs(want).max())
+    np.testing.assert_array_equal(streaming.T_all, cached.T_all)
+    np.testing.assert_array_equal(streaming.q_all, cached.q_all)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rhe", "rhe_dom", "genie"])
+def test_cuda_bf16_streaming_equals_cached(cuda_device, dataset, model):
+    """mm_mode bf16 on the card: the kernels with unsplit bf16 operands,
+    ytg_acc / ytg_acc2 in streaming pass 1; bitwise equal to cached, and
+    within the bf16 envelope (3e-2) of the float64 run."""
+    before = dict(tk.launches)
+    cached = run_engine(dataset, model, "cuda", dtype="bfloat16")
+    streaming = run_engine(dataset, model, "cuda", dtype="bfloat16",
+                           streaming=True)
+    acc = "ytg_acc2_matmul" if model == "rhe_dom" else "ytg_acc_matmul"
+    assert tk.launches[acc] > before[acc]
+    np.testing.assert_array_equal(streaming.T_all, cached.T_all)
+    np.testing.assert_array_equal(streaming.q_all, cached.q_all)
+    _, st64 = run_engine(dataset, model, "cuda", dtype="float64").estimate(0)
+    _, st = cached.estimate(0)
+    np.testing.assert_allclose(st, st64, rtol=3e-2,
+                               atol=3e-2 * np.abs(st64).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_cuda_hybrid_and_host_cache_bitwise(cuda_device, dataset, dtype):
+    """RHE-DOM on the card: cache_blocks 0 and 3 and streaming with the
+    host cache (no second read: 6 hits) bitwise equal to the full cache."""
+    full = run_engine(dataset, "rhe_dom", "cuda", dtype=dtype)
+    for cfg in (dict(cache_blocks=0), dict(cache_blocks=3),
+                dict(streaming=True, host_cache_gb=1.0)):
+        eng = run_engine(dataset, "rhe_dom", "cuda", dtype=dtype, **cfg)
+        np.testing.assert_array_equal(eng.T_all, full.T_all)
+        np.testing.assert_array_equal(eng.q_all, full.q_all)
+    assert eng.phase_times["host_cache_hits"] == 6

@@ -45,7 +45,7 @@ def run_port(ds, annot=1, cov=False, impute="binary", streaming=False,
                  RunConfig(num_random_vec=4, num_jack=4, seed=7,
                            geno_impute_method=impute, device="cpu",
                            streaming=streaming))
-    eng.split = split
+    eng.mode = "split2" if split else "f32"
     eng.run_precompute_and_assemble()
     return eng
 

@@ -59,7 +59,7 @@ def run_port(ds, env_path, genie_model, annot=1, cov=True, streaming=False,
                  RunConfig(num_random_vec=4, num_jack=4, seed=7,
                            device="cpu", streaming=streaming,
                            get_trace=get_trace))
-    eng.split = split
+    eng.mode = "split2" if split else "f32"
     eng.run_precompute_and_assemble()
     return eng
 

@@ -164,7 +164,8 @@ def test_port_imports_neither_jax_nor_pandas():
         "pyrhe_tpu_torch.io.readers", "pyrhe_tpu_torch.core.data",
         "pyrhe_tpu_torch.core.solver", "pyrhe_tpu_torch.core.normal_eq",
         "pyrhe_tpu_torch.core.engine", "pyrhe_tpu_torch.ops.kernels",
-        "pyrhe_tpu_torch.ops.moments", "pyrhe_tpu_torch.models.base",
+        "pyrhe_tpu_torch.ops.moments", "pyrhe_tpu_torch.ops.decode",
+        "pyrhe_tpu_torch.models.base",
         "pyrhe_tpu_torch.models.rhe", "pyrhe_tpu_torch.models.rhe_dom",
         "pyrhe_tpu_torch.models.genie",
         "pyrhe_tpu_torch.profile_run", "pyrhe_tpu_torch.cohort",
@@ -225,12 +226,7 @@ def test_cpu_wrappers_never_touch_the_build(monkeypatch):
                                                        device="meta"))
 
 
-@pytest.mark.parametrize("argv", [
-    ["--dtype", "float64"], ["--dtype", "bfloat16"],
-    ["--checkpoint_dir", "ck"],
-    ["--cache_blocks", "0"], ["--profile_dir", "prof"],
-    ["--host_cache_gb", "2"],
-])
+@pytest.mark.parametrize("argv", [["--checkpoint_dir", "ck"]])
 def test_unported_flags_raise(small_dataset, tmp_path, argv):
     from pyrhe_tpu_torch.cli import cli_entry
     ds = small_dataset
@@ -239,18 +235,6 @@ def test_unported_flags_raise(small_dataset, tmp_path, argv):
                    ds["annot1_path"], "-k", "4", "-jn", "4", "--device",
                    "cpu", "--suppress", "-o", str(tmp_path / "o.txt"),
                    *argv])
-
-
-def test_unported_exports_raise(small_dataset):
-    from pyrhe_tpu_torch import RHE
-    ds = small_dataset
-    rhe = RHE(geno_file=ds["prefix"], annot_file=ds["annot1_path"],
-              pheno_file=ds["pheno_path"], num_jack=4, num_random_vec=4,
-              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rhe.get_XtXz("out")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rhe.simulate_pheno([0.3])
 
 
 def test_port_builds_its_own_bed_decoder(small_dataset):

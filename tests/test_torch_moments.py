@@ -78,7 +78,7 @@ def test_block_stats_core_matches_jax(components, cov):
     w, annot, P, env, mask = as_torch(a)
     X1, y1, M1 = tm.block_stats_pallas_core(
         w, annot, P, env, mask, n_indiv=n_indiv, components=components,
-        b2=b2, split=False)
+        b2=b2, mode="f32")
     assert X1.shape == X0.shape and y1.shape == y0.shape
     assert_close(X1, X0)
     assert_close(y1, y0)
@@ -110,34 +110,35 @@ def _check_acc_core_matches_jax(components, cov):
     tt = [torch.from_numpy(t.copy()) for t in tots]
     new1, y1 = tm.block_stats_pallas_acc_core(
         w, annot, P, env, mask, tt, n_indiv=n_indiv, components=components,
-        b2=b2, split=False)
+        b2=b2, mode="f32")
     for got, ref in zip(new1, new0):
         assert_close(got, ref)
     assert_close(y1, y0)
 
 
-@pytest.mark.parametrize("split", [False, True])
-def test_acc_scan_equals_standard_core_bitwise(split):
+@pytest.mark.parametrize("mode", ["f32", "split2", "bf16"])
+def test_acc_scan_equals_standard_core_bitwise(mode):
     """Streaming pass 1 (aliased totals) == cached pass 1 (standard core +
-    tensor adds), bit for bit, over two blocks of different heights."""
-    _check_acc_scan_equals_standard_core(split, (("add", None), ("add", 0)))
+    tensor adds), bit for bit, over two blocks of different heights, in
+    each kernel mode."""
+    _check_acc_scan_equals_standard_core(mode, (("add", None), ("add", 0)))
 
 
-@pytest.mark.parametrize("split", [False, True])
-def test_dom_acc_scan_equals_standard_core_bitwise(split):
+@pytest.mark.parametrize("mode", ["f32", "split2", "bf16"])
+def test_dom_acc_scan_equals_standard_core_bitwise(mode):
     """The same for RHE-DOM: the dominance totals ride ytg_acc2_matmul in
     the scan and two ytg_matmul calls (g, g²) in the standard core."""
-    _check_acc_scan_equals_standard_core(split, (("add", None),
-                                                 ("dom", None)))
+    _check_acc_scan_equals_standard_core(mode, (("add", None),
+                                                ("dom", None)))
 
 
-def _check_acc_scan_equals_standard_core(split, comps):
+def _check_acc_scan_equals_standard_core(mode, comps):
     blocks = []
     for seed, m in ((4, 300), (5, 160)):
         a, n_indiv, b2 = make_inputs(seed, m=m)
         w, annot, P, env, mask = as_torch(a)
         blocks.append((w, annot))
-    kw = dict(n_indiv=n_indiv, b2=b2, split=split, components=comps)
+    kw = dict(n_indiv=n_indiv, b2=b2, mode=mode, components=comps)
     E, n_pad = len(comps) * K, P.shape[0]
     totX = torch.zeros((E, b2, n_pad))
     toty = torch.zeros((E, T))
@@ -176,7 +177,7 @@ def _check_acc_scan_matches_jax(comps):
     X1, y1 = tm.acc_scan_stats(iter(blocks), P, env, mask,
                                torch.zeros((E, b2, n_pad)),
                                torch.zeros((E, T)), K=K, components=comps,
-                               n_indiv=n_indiv, b2=b2, split=False)
+                               n_indiv=n_indiv, b2=b2, mode="f32")
     assert_close(X1.transpose(1, 2), X0)
     assert_close(y1, y0)
 
@@ -193,9 +194,9 @@ def test_dominance_components_raise():
         with pytest.raises(ValueError, match="unsupported component"):
             tm.block_stats_pallas_core(
                 w, annot, P, env, mask, n_indiv=n_indiv, components=comps,
-                b2=b2, split=False)
+                b2=b2, mode="f32")
         with pytest.raises(ValueError, match="unsupported component"):
             tm.block_stats_pallas_acc_core(
                 w, annot, P, env, mask,
                 [torch.zeros((K * b2, n_pad)) for _ in comps],
-                n_indiv=n_indiv, components=comps, b2=b2, split=False)
+                n_indiv=n_indiv, components=comps, b2=b2, mode="f32")
