@@ -71,16 +71,31 @@ non-zero without printing a result:
 7. the exports on the example dataset in float64, the card against the
    CPU port: get_XtXz and its jackknife files, simulate_pheno and the
    estimate after it; then one CLI run on the card with --profile_dir,
-   whose trace must hold the kernels' device events.
+   whose trace must hold the kernels' device events;
+8. checkpoint/resume and the sharded path on the phase-4 cohort:
+   checkpointed streaming RHE (checkpoint_every 10) crashed at its 5th
+   commit, resumed from block 50 (totals.npz's own next_j), bitwise equal to
+   phase 4's streaming run, then a done-resume that reads no block and
+   launches nothing; RHE-DOM cache_blocks=40 (hybrid; 10 when the temp disk
+   lacks room for 40 block files of 128 MB) crashed mid pass 2 and RHE
+   float64 streaming crashed mid pass 1, each resumed bitwise equal to
+   phase 5's run; Engine.run_sharded() at world size 1 through an NCCL
+   process group in this process for RHE cached and streaming and GENIE
+   streaming, bitwise equal to phase 4's sequential runs, and a sharded
+   checkpointed run crashed and resumed; with two or more cards, the CLI
+   in two NCCL ranks under torchrun. Prints the commits, the seconds of
+   snapshot I/O and the bytes on disk.
 
 The last two lines are a JSON object of per-kernel results and the
 {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -638,7 +653,8 @@ def phase_modes(prefix, phase4):
     streaming (ytg_acc2 with unsplit bf16 operands); RHE-DOM with
     cache_blocks=40 (hybrid) and RHE streaming with the host cache off,
     bitwise equal to phase 4's runs; a pinned against a pageable copy of
-    one staged block. Returns the bf16 path's launch counts."""
+    one staged block. Returns the bf16 path's launch counts and {"f64
+    streaming" | "dom hybrid": (T_all, q_all, sigma, h2)}."""
     import torch
     from pyrhe_tpu_torch import RHE, RHE_DOM, StreamingRHE, StreamingRHE_DOM
     from pyrhe_tpu_torch.ops import kernels as K
@@ -702,7 +718,7 @@ def phase_modes(prefix, phase4):
     log(f"{tag} H2D of one staged block ({nbytes / 1e6:.1f} MB): pinned "
         f"{pinned:.4f} ms ({nbytes / pinned / 1e6:.1f} GB/s), pageable "
         f"{pageable:.4f} ms ({nbytes / pageable / 1e6:.1f} GB/s)")
-    return launches
+    return launches, {"f64 streaming": f64[True], "dom hybrid": hybrid}
 
 
 def phase_exports(d, prefix):
@@ -764,6 +780,311 @@ def phase_exports(d, prefix):
     log(f"{tag} CLI --profile_dir on the card: {len(trace) / 1e6:.1f} MB "
         f"Chrome trace with {', '.join(kernels)} device events, "
         f"{time.perf_counter() - t0:.1f} s wall")
+
+
+@contextlib.contextmanager
+def _crashing(n_allowed=None, phase_at=None):
+    """Every Checkpoint of this process raises "simulated crash" at its
+    commit after n_allowed successful ones, or at the commit of (phase,
+    next_j) phase_at; the body must crash."""
+    from pyrhe_tpu_torch.core.checkpoint import Checkpoint
+    real = Checkpoint.commit
+    seen = [0]
+
+    def commit(self, phase, next_j):
+        if (phase, next_j) == phase_at or (n_allowed is not None
+                                            and seen[0] >= n_allowed):
+            raise RuntimeError("simulated crash")
+        seen[0] += 1
+        real(self, phase, next_j)
+
+    Checkpoint.commit = commit
+    try:
+        yield
+    except RuntimeError as e:
+        if "simulated crash" not in str(e):
+            raise
+    else:
+        raise AssertionError("the checkpointed run did not crash")
+    finally:
+        Checkpoint.commit = real
+
+
+@contextlib.contextmanager
+def _snapshot_io():
+    """Wall seconds and count of every checkpoint save and commit of this
+    process inside the body: {"s": seconds, "commits": n}."""
+    from pyrhe_tpu_torch.core.checkpoint import Checkpoint
+    out = {"s": 0.0, "commits": 0}
+    names = ("save_totals", "save_assemble", "save_results", "commit")
+    real = {n: getattr(Checkpoint, n) for n in names}
+
+    def timed(n):
+        def call(self, *a):
+            t0 = time.perf_counter()
+            try:
+                return real[n](self, *a)
+            finally:
+                out["s"] += time.perf_counter() - t0
+                out["commits"] += n == "commit"
+        return call
+
+    for n in names:
+        setattr(Checkpoint, n, timed(n))
+    try:
+        yield out
+    finally:
+        for n in names:
+            setattr(Checkpoint, n, real[n])
+
+
+def _du(path) -> int:
+    """Bytes of the files under path."""
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, files in os.walk(path) for f in files)
+
+
+def _spy_loads(eng):
+    """The block indices eng reads, in order."""
+    loaded = []
+    orig = eng._load_block
+
+    def spy(j):
+        loaded.append(j)
+        return orig(j)
+
+    eng._load_block = spy
+    return loaded
+
+
+def _results(model, res=None):
+    """(T_all, q_all, sigma, h2) of a model that ran; res its report."""
+    eng = model.engine
+    if res is None:
+        return eng.T_all, eng.q_all
+    return (eng.T_all, eng.q_all, np.asarray(res["sigma_ests_total"]),
+            np.asarray(res["h2_total"]))
+
+
+def _assert_same4(label, got, want):
+    """(T_all, q_all, sigma, h2) bitwise equal."""
+    _assert_same(label, got, want)
+    for name, a, b in (("sigma^2", got[2], want[2]), ("h2", got[3], want[3])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: {name} {a} != {b}")
+
+
+class _Launches:
+    """Launch counts summed over the runs of phase 8, each run's set to 0
+    just before it and read just after."""
+
+    def __init__(self):
+        from pyrhe_tpu_torch.ops import kernels as K
+        self.K = K
+        self.total = dict.fromkeys(K.KERNELS, 0)
+
+    def run(self, label, fn, kernels=()):
+        """fn() with the counts set to 0 before and read after (also when
+        fn raises: a crashed run's launches count too); every kernel in
+        kernels must have launched. Returns (fn(), counts)."""
+        self.K.reset_launch_counts()
+        try:
+            out = fn()
+        finally:
+            counts = dict(self.K.launches)
+            for name, n in counts.items():
+                self.total[name] += n
+        missing = [k for k in kernels if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched "
+                                 f"({counts})")
+        return out, counts
+
+
+def phase_checkpoint(d, prefix, phase4, phase5):
+    """8. Checkpoint/resume and the sharded path on the card, at the phase-4
+    cohort: (a) checkpointed streaming RHE (checkpoint_every 10) crashed at
+    its 5th commit, resumed from totals.npz's block 50 and bitwise equal to
+    phase 4's streaming run, then a done-resume that reads no block; (b)
+    RHE-DOM cache_blocks=40 (hybrid; 10 when the temp disk lacks room for
+    40 block files) crashed mid pass 2 and resumed, bitwise equal to phase
+    5's hybrid run (phase 4's cached one at 10), and RHE float64 streaming
+    crashed mid pass 1 and resumed, bitwise equal to phase 5's; (c)
+    Engine.run_sharded() at world size 1 through an NCCL process group in
+    this process for RHE cached and streaming and GENIE streaming, each
+    bitwise equal to phase 4's sequential run with every kernel of its path
+    launched, and a sharded checkpointed run crashed and resumed; (d) with
+    two or more cards, the CLI in two NCCL ranks under torchrun within the
+    split2 envelope of phase 4's streaming RHE. Returns the phase's launch
+    counts."""
+    import shutil
+
+    import torch
+    from pyrhe_tpu_torch import (RHE, RHE_DOM, StreamingGENIE, StreamingRHE,
+                                 cohort)
+    from pyrhe_tpu_torch.ops import kernels as K
+    from pyrhe_tpu_torch.parallel import distributed
+    tag = "[8 ckpt]"
+    count = _Launches()
+    additive = ("gp_matmul", "ytg_matmul", "ytg_acc_matmul")
+    every = dict(checkpoint_every=10)
+
+    # (a) streaming RHE: crash at the 5th commit (pass 1, block 50)
+    ck = os.path.join(d, "ck_rhe")
+    t0 = time.perf_counter()
+    with _snapshot_io() as io, _crashing(n_allowed=4):
+        count.run("(a) crash", lambda: cohort.model(
+            StreamingRHE, prefix, checkpoint_dir=ck, **every)(trait=0))
+    t_crash, on_disk = time.perf_counter() - t0, _du(ck)
+    model = cohort.model(StreamingRHE, prefix, checkpoint_dir=ck, **every)
+    loaded = _spy_loads(model.engine)
+    with _snapshot_io() as io2:
+        res, _ = count.run("(a) resume", lambda: model(trait=0), additive)
+    if loaded[:50] != list(range(50, 100)):
+        raise AssertionError(f"(a) resumed pass 1 read {loaded[:50]}, not "
+                             "blocks 50..99")
+    _assert_same4("(a) resumed streaming RHE vs phase 4", _results(model, res),
+                  phase4["RHE"]["streaming"])
+    pt = model.engine.phase_times
+    done = cohort.model(StreamingRHE, prefix, checkpoint_dir=ck, **every)
+    loaded = _spy_loads(done.engine)
+    res, counts = count.run("(a) done-resume", lambda: done(trait=0))
+    if loaded or any(counts.values()):
+        raise AssertionError(f"(a) done-resume read blocks {loaded}, "
+                             f"launched {counts}")
+    _assert_same4("(a) done-resume vs phase 4", _results(done, res),
+                  phase4["RHE"]["streaming"])
+    log(f"{tag} (a) StreamingRHE checkpoint_every 10: crash at the 5th "
+        f"commit after {t_crash:.1f} s ({io['commits']} commits, snapshot "
+        f"I/O {io['s']:.3f} s, {io['s'] / max(io['commits'], 1):.3f} s a "
+        f"commit; {on_disk / 1e6:.1f} MB on disk); resume from block 50: "
+        f"pass 1 {pt['pass1_s']:.3f} s, pass 2 {pt['pass2_s']:.3f} s, "
+        f"snapshot I/O {io2['s']:.3f} s over {io2['commits']} commits, "
+        f"{_du(ck) / 1e6:.1f} MB on disk; T, q, sigma^2, h2 == phase 4 "
+        "streaming bitwise; done-resume: no block read, no launch, equal")
+    shutil.rmtree(ck)
+
+    # (b) RHE-DOM hybrid crashed mid pass 2 at sample 30, RHE float64
+    # streaming crashed mid pass 1 at block 30
+    per_block = 2 * 8 * 20 * 100352 * 4
+    keep = 40 if shutil.disk_usage(d).free > 2 * 40 * per_block else 10
+    want = (phase5["dom hybrid"] if keep == 40
+            else phase4["RHE-DOM"]["cached"])
+    for label, cls, kw, crash, first, want, kernels in (
+            (f"RHE-DOM cache_blocks={keep}", RHE_DOM, dict(cache_blocks=keep),
+             dict(phase_at=("assemble", 30)), 30, want, K.KERNELS[:4]),
+            ("RHE float64 streaming", StreamingRHE, dict(dtype="float64"),
+             dict(n_allowed=2), 30, phase5["f64 streaming"], ())):
+        ck = os.path.join(d, "ck_b")
+        t0 = time.perf_counter()
+        with _snapshot_io() as io, _crashing(**crash):
+            count.run(f"(b) {label} crash", lambda: cohort.model(
+                cls, prefix, checkpoint_dir=ck, **every, **kw)(trait=0))
+        t_crash, on_disk = time.perf_counter() - t0, _du(ck)
+        model = cohort.model(cls, prefix, checkpoint_dir=ck, **every, **kw)
+        loaded = _spy_loads(model.engine)
+        t0 = time.perf_counter()
+        res, _ = count.run(f"(b) {label} resume", lambda: model(trait=0),
+                           kernels)
+        t_res = time.perf_counter() - t0
+        expect = list(range(max(first, kw.get("cache_blocks", 0)), 100))
+        if loaded[:len(expect)] != expect:
+            raise AssertionError(f"(b) {label}: resume read {loaded[:5]}.., "
+                                 f"not {expect[:5]}..")
+        _assert_same4(f"(b) resumed {label}", _results(model, res), want)
+        log(f"{tag} (b) {label}: crash after {t_crash:.1f} s ({io['commits']}"
+            f" commits, snapshot I/O {io['s']:.3f} s, {on_disk / 1e9:.2f} GB "
+            f"on disk); resumed from {first} in {t_res:.1f} s, bitwise == "
+            + ("phase 5" if want is not phase4["RHE-DOM"]["cached"]
+               else "phase 4 cached"))
+        del model
+        shutil.rmtree(ck)
+        torch.cuda.empty_cache()
+
+    # (c) the sharded path at world size 1 through NCCL, in this process
+    saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE",
+                                             "LOCAL_RANK", "MASTER_ADDR",
+                                             "MASTER_PORT")}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    distributed.initialize("cuda", timeout_s=300)
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("the process group is not NCCL")
+        for label, cls, key, kw, kernels in (
+                ("RHE", RHE, "cached", {}, additive[:2]),
+                ("RHE", StreamingRHE, "streaming", {}, additive),
+                ("GENIE", StreamingGENIE, "streaming",
+                 cohort.genie_kw(prefix), additive)):
+            model = cohort.model(cls, prefix, **kw)
+            t0 = time.perf_counter()
+            _, counts = count.run(f"(c) {label} {key}",
+                                  model.engine.run_sharded, kernels)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            _assert_same(f"(c) sharded {label} {key} vs phase 4",
+                         _results(model), phase4[label][key])
+            pt = model.engine.phase_times
+            log(f"{tag} (c) run_sharded world 1 (NCCL) {cls.__name__}: "
+                f"{wall:.3f} s (pass 1 {pt['pass1_s']:.3f}, pass 2 "
+                f"{pt['pass2_s']:.3f}); T, q == phase 4 {key} bitwise; "
+                f"launches {counts}")
+            del model
+            torch.cuda.empty_cache()
+        ck = os.path.join(d, "ck_c")
+        with _crashing(n_allowed=2):
+            count.run("(c) sharded crash", lambda: cohort.model(
+                StreamingRHE, prefix, checkpoint_dir=ck,
+                **every).engine.run_sharded())
+        model = cohort.model(StreamingRHE, prefix, checkpoint_dir=ck, **every)
+        loaded = _spy_loads(model.engine)
+        count.run("(c) sharded resume", model.engine.run_sharded, additive)
+        if loaded[:70] != list(range(30, 100)):
+            raise AssertionError(f"(c) sharded resume read {loaded[:5]}..")
+        _assert_same("(c) sharded resumed vs phase 4", _results(model),
+                     phase4["RHE"]["streaming"])
+        if not os.path.isdir(os.path.join(ck, "shard_0_of_1")):
+            raise AssertionError("(c) no per-rank checkpoint directory")
+        log(f"{tag} (c) sharded StreamingRHE crashed at its 3rd commit, "
+            "resumed from block 30 (shard_0_of_1): == phase 4 bitwise")
+        del model
+        shutil.rmtree(ck)
+    finally:
+        distributed.destroy()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (d) two NCCL ranks: needs two cards
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"{tag} (d) two NCCL ranks under torchrun: not run, {n_cards} "
+            "CUDA card visible (each rank needs a card of its own)")
+        return count.total
+    from parse_output import parse_output_file
+    report = os.path.join(d, "cli_rhe_torchrun.txt")
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "pyrhe_tpu_torch.cli",
+         *cohort.cli_args(prefix), "--streaming", "-o", report,
+         "--suppress"], check=True, cwd=ROOT, timeout=600)
+    got = parse_output_file(report)
+    sig = np.array([g["value"] for g in got["sigma2_g"]]
+                   + [got["sigma2_e"]["value"]])
+    want = phase4["RHE"]["streaming"][2]
+    atol = SPLIT2_RTOL * np.abs(want).max()
+    if not np.all(np.abs(sig - want) <= atol + SPLIT2_RTOL * np.abs(want)):
+        raise AssertionError(f"(d) two ranks sigma {sig} vs {want}")
+    log(f"{tag} (d) CLI in two NCCL ranks (torchrun): "
+        f"{time.perf_counter() - t0:.1f} s wall; sigma^2 within the split2 "
+        f"envelope of phase 4 (max gap {np.abs(sig - want).max():.3e})")
+    return count.total
 
 
 def _example(d):
@@ -979,7 +1300,14 @@ def main():
     kres = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="rhe_smoke_") as d:
         prefix, launches, phase4 = phase_main(d)
-        for name, n in phase_modes(prefix, phase4).items():
+        launches5, phase5 = phase_modes(prefix, phase4)
+        for name, n in launches5.items():
+            launches[name] += n
+        t8 = time.perf_counter()
+        launches8 = phase_checkpoint(d, prefix, phase4, phase5)
+        log(f"[8 ckpt] {time.perf_counter() - t8:.1f} s; launches in the "
+            f"phase's runs: {launches8}")
+        for name, n in launches8.items():
             launches[name] += n
     with tempfile.TemporaryDirectory(prefix="rhe_smoke_ex_") as d:
         phase_small(d)

@@ -1,16 +1,20 @@
 """CLI of the PyTorch port: `python -m pyrhe_tpu_torch.cli`.
 
-The parser is a copy of pyrhe_tpu/cli.py's (importing that module would
-import jax): the same flags as run_rhe.py plus an INI `--config` overlay
+The parser is a copy of pyrhe_tpu/cli.py's (that module would bring in
+jax): the same flags as run_rhe.py plus an INI `--config` overlay
 with type coercion against argparse defaults (reference run_rhe.py:13-26,
 158-220), and the same report schema, so parse_output.py and other
 downstream regex parsers keep working. `--device` defaults to the CUDA
 card ("auto"); `--device cpu` runs the same path on the CPU.
 `--profile_dir d` wraps the trait loop in torch.profiler and writes a
-Chrome trace into d. `--checkpoint_dir`, which the port does not run yet,
-raises NotImplementedError naming its ROADMAP.md item; `--num_workers`,
-`--cuda_num` and `--stage_streams` are accepted for config compatibility
-and unused.
+Chrome trace into d. `--checkpoint_dir d` snapshots the run into d every
+`--checkpoint_every` blocks, and a rerun with the same flags resumes from
+it. Under torchrun (`torchrun --nproc_per_node G -m pyrhe_tpu_torch.cli
+...`, one process per GPU) the run joins the process group and shards the
+jackknife blocks over the ranks; rank 0 alone prints and writes the
+report, and PYRHE_TPU_DISTRIBUTED=0 keeps every process sequential.
+`--num_workers`, `--cuda_num` and `--stage_streams` are accepted for
+config compatibility and unused.
 """
 from __future__ import annotations
 
@@ -21,9 +25,11 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from .models import (GENIE, RHE, RHE_DOM, StreamingGENIE, StreamingRHE,
                      StreamingRHE_DOM)
+from .parallel import distributed
 from .utils.logger import Logger
 
 
@@ -152,11 +158,18 @@ HEADER = [
 
 
 def main(args):
-    log = Logger(output_file=args.output, suppress=args.suppress,
-                 debug_mode=args.debug)
+    rank, size = distributed.world()
+    log = Logger(output_file=args.output if rank == 0 else None,
+                 suppress=args.suppress, debug_mode=args.debug)
     for line in HEADER:
         log._log(line)
     log._log("\n")
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if size == 1 and args.device != "cpu" and n_cards > 1:
+        log._log(f"Note: {n_cards} CUDA devices are visible and this process "
+                 "runs on one; to shard the jackknife blocks over them, run "
+                 f"one process per GPU: torchrun --nproc_per_node {n_cards} "
+                 "-m pyrhe_tpu_torch.cli ...")
     options = {
         "-g (genotype)": args.genotype,
         "-annot (annotation)": args.annotation,
@@ -255,6 +268,19 @@ def _profiler(profile_dir, device):
     return torch.profiler.profile(activities=acts)
 
 
+def join_process_group(args) -> bool:
+    """Join the torch.distributed job the environment names (torchrun's
+    variables) unless PYRHE_TPU_DISTRIBUTED=0; every rank but 0 runs
+    silent (reference cli.py:243-251). Returns whether it joined."""
+    if (os.environ.get("PYRHE_TPU_DISTRIBUTED") == "0"
+            or distributed.env_world_size() <= 1):
+        return False
+    distributed.initialize(args.device)
+    if distributed.world()[0] != 0:
+        args.suppress = True        # one console report per job, rank 0's
+    return True
+
+
 def cli_entry(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -264,14 +290,19 @@ def cli_entry(argv=None):
             if key in config_args:
                 setattr(args, key, convert_to_correct_type(
                     config_args[key], default))
-    if args.benchmark_runtime:
-        runtimes = []
-        for _ in range(3):
-            runtimes.append(main(args))
-        print(f"runtime: {np.mean(runtimes):.2f} ± "
-              f"{np.std(runtimes):.2f} seconds")
-    else:
-        main(args)
+    joined = join_process_group(args)
+    try:
+        if args.benchmark_runtime:
+            runtimes = []
+            for _ in range(3):
+                runtimes.append(main(args))
+            print(f"runtime: {np.mean(runtimes):.2f} ± "
+                  f"{np.std(runtimes):.2f} seconds")
+        else:
+            main(args)
+    finally:
+        if joined:
+            distributed.destroy()
 
 
 if __name__ == '__main__':

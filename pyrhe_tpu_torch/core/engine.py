@@ -39,11 +39,21 @@ keeps its bf16 operands there.
 Every trait's residualized phenotype is an extra probe column, so all
 traits share one precompute and only q differs per trait.
 
+Checkpoint/resume (cfg.checkpoint_dir, core/checkpoint.py): pass 1 saves
+its totals and commits at the checkpoint_every cadence (and writes the
+cached blocks' stats), pass 2 saves its partial (T, q) in every cache mode,
+and a finished run keeps its results; a rerun with the same fingerprint
+resumes from the stored state and gives bitwise the same (T, q).
+run_sharded() runs the same passes over the blocks of one rank of a
+torch.distributed job (parallel/sharded.py).
+
 The device is CUDA unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -59,15 +69,9 @@ from ..ops.moments import (acc_scan_stats, block_stats_core,
 from ..utils.logger import Logger
 from ..utils.types import GenoImputeMethod
 from . import solver as S
+from .checkpoint import Checkpoint, CheckpointBusy
 from .data import DataBundle
 from .normal_eq import assemble_Tq_core
-
-
-def unported(what: str, item: int) -> NotImplementedError:
-    """The error for a feature of pyrhe_tpu the port does not run yet."""
-    return NotImplementedError(
-        f"{what} is not ported to pyrhe_tpu_torch yet (ROADMAP.md, Queue 1 "
-        f"item {item}); the JAX package (run_rhe.py) runs it")
 
 
 @dataclass(frozen=True)
@@ -122,8 +126,8 @@ class RunConfig:
     trace_dir: str | None = None
     device: str = "auto"            # auto (= cuda) | cuda[:i] | cpu
     mm_mode: str = "auto"           # auto (from dtype) | exact | split2 | bf16
-    checkpoint_dir: str | None = None   # checkpoint/resume: item 9
-    checkpoint_every: int = 1
+    checkpoint_dir: str | None = None   # crash-safe snapshots here
+    checkpoint_every: int = 1           # snapshot cadence in blocks
     cache_blocks: int = -1          # stats-cache size in blocks: -1 = auto
                                     # (fit the device budget, hybrid when
                                     # short), 0 = cache nothing, J = all;
@@ -156,13 +160,6 @@ def resolve_mm_mode(cfg: RunConfig) -> str:
         raise ValueError(f"mm_mode {mode!r} runs the float32 kernels; "
                          "float64 runs mm_mode 'exact'")
     return mode
-
-
-def check_ported(cfg: RunConfig) -> None:
-    """Raise for the settings the port does not run yet."""
-    resolve_mm_mode(cfg)
-    if cfg.checkpoint_dir:
-        raise unported("checkpoint/resume (--checkpoint_dir)", 9)
 
 
 def mem_available_bytes() -> float:
@@ -253,10 +250,29 @@ def static_arrays_from_numpy(Z, Uzb, cov, Q, Y_resid, keep_idx,
         env=put(env) if env is not None else None)
 
 
+def stored_results(ck):
+    """(T_all, q_all) of a finished run stored in the checkpoint ck, else
+    None (no checkpoint, another phase, or corrupt results)."""
+    state = ck.state() if ck is not None else None
+    if state is None or state[0] != "done":
+        return None
+    return ck.load_results()
+
+
+def _ticking(blocks, j: int, covered):
+    """Yield the blocks, which start at block j, and call covered(j + 1)
+    once the consumer asks for the next one or finishes: block j's work is
+    then enqueued and its in-place updates of the totals made."""
+    for blk in blocks:
+        yield blk
+        j += 1
+        covered(j)
+
+
 class Engine:
     def __init__(self, data: DataBundle, spec: ModelSpec, cfg: RunConfig,
                  log: Logger | None = None):
-        check_ported(cfg)
+        self.mm_mode = resolve_mm_mode(cfg)
         GenoImputeMethod(cfg.geno_impute_method)  # raises on unknown value
         self.data = data
         self.spec = spec
@@ -269,7 +285,6 @@ class Engine:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.dtype = DTYPES[cfg.dtype]
-        self.mm_mode = resolve_mm_mode(cfg)
         # the block path's mode (ops/moments): the CPU runs split2 as the
         # plain f32 products unsplit
         self.mode = ("f32" if self.mm_mode == "split2"
@@ -290,6 +305,7 @@ class Engine:
         self.b2 = self.B * (2 if self.use_cov else 1)
         self.n_pad = pad_to(data.bed.num_indiv, TN)
         self.cache_limit = self._plan_cache()
+        self._ckpt = self._open_checkpoint()
         self._build_static_arrays()
         self._cache: dict[int, tuple] = {}
         self._host_cache = self._init_host_cache()
@@ -333,8 +349,7 @@ class Engine:
                     "(--cache_blocks); the rest is recomputed in pass 2 "
                     "(hybrid)")
             return limit
-        per_block = (self.E_geno * self.b2 * self.n_pad
-                     * torch.finfo(self.dtype).bits // 8)
+        per_block = self.stats_block_bytes()
         cache_bytes = self.J * per_block
         budget = self._cache_budget()
         if cache_bytes <= budget:
@@ -352,6 +367,94 @@ class Engine:
             "mode")
         self.cfg = dataclasses.replace(cfg, streaming=True)
         return 0
+
+    def stats_block_bytes(self) -> int:
+        """Device bytes of one block's cached stats."""
+        return (self.E_geno * self.b2 * self.n_pad
+                * torch.finfo(self.dtype).bits // 8)
+
+    def _open_checkpoint(self):
+        """The run's Checkpoint (reference engine.py:204-217), or None
+        without cfg.checkpoint_dir. Its lock is per rank under
+        torch.distributed; when another live run holds the directory this
+        run logs a WARNING and does not checkpoint."""
+        if not self.cfg.checkpoint_dir:
+            return None
+        from ..parallel.distributed import world
+        rank, size = world()
+        lock = ".lock" if size == 1 else f".lock.r{rank}"
+        try:
+            return Checkpoint(self.cfg.checkpoint_dir, self._fingerprint(),
+                              self.log, lock_name=lock)
+        except CheckpointBusy as e:
+            # sharing a live run's directory would interleave commits and
+            # could reset its state; run un-checkpointed instead
+            self.log._log(f"WARNING: {e}; this run will NOT checkpoint")
+            return None
+
+    def _fingerprint(self) -> dict:
+        """Everything that shapes the checkpointed numerics (reference
+        engine.py:236-269): dataset identity and shapes, the estimation
+        hyperparameters, the dtype, mm_mode, device type and block mode (the
+        card's split2 and the CPU's plain f32 products differ in their last
+        bits). No cache split: a hybrid run resumes under any split (the
+        reload is tolerant, pass 2 recomputes what is missing). A stored
+        checkpoint whose fingerprint differs is discarded."""
+        path = getattr(self.data.bed, "path", None)
+        try:
+            size = os.path.getsize(path) if path else None
+            mtime = int(os.path.getmtime(path)) if path else None
+        except OSError:
+            size = mtime = None
+        return {
+            # size alone is a pure function of (num_snp, num_indv): mtime
+            # and a sampled content hash pin the .bed's identity without
+            # reading all of it
+            "bed": [str(path), size, mtime, self._bed_sample_sha(path)],
+            "num_snp": int(self.data.num_snp),
+            "num_indv": int(self.data.num_indv),
+            "J": self.J, "B": self.B, "K": self.K,
+            "E_geno": self.E_geno, "num_nxe": self.num_nxe,
+            "b2": self.b2, "T_traits": self.T_traits,
+            "seed": self.cfg.seed, "dtype": self.cfg.dtype,
+            "mm_mode": self.mm_mode, "device": self.dev.type,
+            "mode": self.mode, "n_pad": int(self.n_pad),
+            "model": self.spec.model, "genie_model": self.spec.genie_model,
+            "streaming": self.cfg.streaming,
+            "impute": self.cfg.geno_impute_method,
+            # the probes carry the residualized phenotype and the annot
+            # drives the bins: same shapes with other content must not
+            # resume
+            "aux_sha": self._aux_sha(),
+        }
+
+    @staticmethod
+    def _bed_sample_sha(path) -> str | None:
+        """sha256 over 1 MB samples at the start, middle and end of the
+        .bed (reference engine.py:271-290)."""
+        if not path:
+            return None
+        h = hashlib.sha256()
+        try:
+            size = os.path.getsize(path)
+            with open(path, "rb") as f:
+                for off in sorted({0, max(0, size // 2 - 2**19),
+                                   max(0, size - 2**20)}):
+                    f.seek(off)
+                    h.update(f.read(2**20))
+        except OSError:
+            return None
+        return h.hexdigest()[:16]
+
+    def _aux_sha(self) -> str:
+        h = hashlib.sha256()
+        for arr in (self.data.pheno, self.data.cov, self.data.env,
+                    self.data.annot):
+            if arr is not None:
+                a = np.ascontiguousarray(np.asarray(arr, np.float64))
+                h.update(str(a.shape).encode())
+                h.update(a.tobytes())
+        return h.hexdigest()[:16]
 
     def _init_host_cache(self) -> dict | None:
         """Host-RAM cache of the cleaned blocks for streaming pass 2
@@ -536,44 +639,112 @@ class Engine:
         through the aliased kernels (ops/moments.acc_scan_stats); mode
         "exact" adds their standard stats, whose dtype the f32 acc kernels
         do not take (reference engine._acc_fast_path). Bitwise the same
-        totals either way."""
+        totals either way. Resumes from the checkpoint when it holds one."""
         t0 = time.perf_counter()
+        self._tot = self._pass1(self._ckpt, 0, self.J, self.cache_limit)
+        self._end_pass("pass1_s", t0)
+
+    def _pass1(self, ck, lo: int, hi: int, cache_until: int):
+        """Totals (tot_X (E_geno, b2, n_pad), tot_y (E_geno, T)) over the
+        blocks [lo, hi), resumed from ck's stored state when there is one;
+        blocks below cache_until keep their stats in self._cache and stage
+        them into ck. At the checkpoint_every cadence the totals are saved
+        and ("precompute", j) committed; at the end ("assemble", lo)."""
         st = self.static
         tot_X = torch.zeros((self.E_geno, self.b2, self.n_pad),
                             dtype=self.dtype, device=self.dev)
         tot_y = torch.zeros((self.E_geno, self.T_traits), dtype=self.dtype,
                             device=self.dev)
-        blocks = self._blocks(range(self.J))
-        for j in range(self.cache_limit):
+        start = self._resume_pass1(ck, lo, hi, tot_X, tot_y)
+        if start >= hi:
+            return tot_X, tot_y
+        every = max(1, self.cfg.checkpoint_every)
+
+        def covered(j):
+            """Blocks [lo, j) are in the totals: a snapshot at the cadence
+            (the one at hi follows the loop). The copy to the host waits
+            for the block's work in stream order."""
+            if ck is not None and j < hi and (j - start) % every == 0:
+                ck.save_totals(tot_X, tot_y, j)
+                ck.commit("precompute", j)
+
+        blocks = self._blocks(range(start, hi))
+        split = max(start, min(cache_until, hi))
+        for j in range(start, split):
             XXP, yXXy = self._block_stats(*next(blocks))
             tot_X.add_(XXP)
-            tot_y = tot_y + yXXy
+            tot_y.add_(yXXy)
             self._cache[j] = (XXP, yXXy)
+            if ck is not None:
+                ck.stage_block(j, XXP, yXXy)
+            covered(j + 1)
+        rest = _ticking(blocks, split, covered)
         if self.mode == "exact":
-            for words, annot in blocks:
+            for words, annot in rest:
                 XXP, yXXy = self._block_stats(words, annot)
                 tot_X.add_(XXP)
-                tot_y = tot_y + yXXy
+                tot_y.add_(yXXy)
         else:
-            tot_X, tot_y = acc_scan_stats(
-                blocks, st.P, st.env, st.valid_mask, tot_X, tot_y, K=self.K,
-                mode=self.mode, **self._stat_kw())
-        self._tot = (tot_X, tot_y)
-        self._end_pass("pass1_s", t0)
+            acc_scan_stats(rest, st.P, st.env, st.valid_mask, tot_X, tot_y,
+                           K=self.K, mode=self.mode, **self._stat_kw())
+        if ck is not None:
+            ck.save_totals(tot_X, tot_y, hi)
+            ck.commit("assemble", lo)
+        return tot_X, tot_y
+
+    def _resume_pass1(self, ck, lo, hi, tot_X, tot_y) -> int:
+        """Resume bookkeeping of pass 1 (reference engine.py:685-726):
+        loads the stored totals into tot_X / tot_y and the stored block
+        stats into self._cache, and returns the first block still to read
+        (hi when pass 1 is complete, lo when starting fresh). The start is
+        totals.npz's own next_j, not meta's: a crash between the totals
+        save and the commit leaves the file one interval ahead, and its
+        next_j is what its content covers. Block files are reloaded
+        tolerantly (a hybrid run wrote only its budgeted blocks; pass 2
+        recomputes a hole), and not below the sample pass 2 resumes at."""
+        state = ck.state() if ck is not None else None
+        if state is None:
+            return lo
+        ld = ck.load_totals()
+        if ld is None:
+            return lo
+        phase = state[0]
+        start = hi if phase in ("assemble", "done") else ld[2]
+        if start <= lo:
+            return lo
+        tot_X.copy_(torch.from_numpy(ld[0]))
+        tot_y.copy_(torch.from_numpy(ld[1]))
+        self.log._log(
+            f"Resuming precompute from checkpoint: {start - lo}/{hi - lo} "
+            f"jackknife blocks already covered ({ck.dir})")
+        first = lo
+        if phase != "precompute":
+            asm = ck.load_assemble()
+            first = asm[2] if asm is not None else lo
+        for j, (X, y) in ck.load_blocks_partial(upto=start,
+                                                 start=first).items():
+            self._cache[j] = (torch.from_numpy(X).to(self.dev),
+                              torch.from_numpy(y).to(self.dev))
+        return start
 
     # --------------------------------------------------------------- assembly
-    def _loo_blocks(self):
-        """Per-block stats for pass 2, in block order (reference
-        engine.py:1104-1129): cached blocks are popped (so device memory
-        falls as samples are assembled), each run of uncached ones is
-        recomputed through one prefetching _blocks walk."""
-        j = 0
-        while j < self.J:
+    def _loo_blocks(self, start: int = 0, hi: int | None = None):
+        """Per-block stats of blocks [start, hi) (hi default J) for pass 2,
+        in block order
+        (reference engine.py:1104-1129): cached blocks are popped (so
+        device memory falls as samples are assembled), each run of uncached
+        ones is recomputed through one prefetching _blocks walk. Cached
+        blocks below start (assembled before a resume) are dropped."""
+        hi = self.J if hi is None else hi
+        for k in [k for k in self._cache if k < start]:
+            del self._cache[k]
+        j = start
+        while j < hi:
             if j in self._cache:
                 yield self._cache.pop(j)
                 j += 1
                 continue
-            stop = min((k for k in self._cache if k > j), default=self.J)
+            stop = min((k for k in self._cache if k > j), default=hi)
             for words, annot in self._blocks(range(j, stop)):
                 yield self._block_stats(words, annot)
             j = stop
@@ -592,23 +763,53 @@ class Engine:
             num_random_vec=self.B, n_indiv=self.data.num_indv,
             n_cov=self.data.cov.shape[1] if self.use_cov else 0)
 
-    def assemble(self):
-        """Pass 2: T_all (J+1, E+1, E+1) and q_all (J+1, E+1, T) float64,
-        one leave-one-out sample at a time on the device; sample J is the
-        full data."""
-        t0 = time.perf_counter()
-        tot_X, tot_y = self._tot
-        Ts, qs = [], []
-        for j, (bX, by) in enumerate(self._loo_blocks()):
+    def _pass2(self, ck, tot_X, tot_y, lo: int, hi: int):
+        """Lists of the (T, q) of the leave-one-out samples [lo, hi), in
+        order, resumed from ck's partial (T, q) when it holds them; at the
+        checkpoint_every cadence the partial (T, q) is saved and
+        ("assemble", j) committed, in every cache mode."""
+        Ts, qs, start = self._resume_pass2(ck, lo)
+        every = max(1, self.cfg.checkpoint_every)
+        for j, (bX, by) in enumerate(self._loo_blocks(start, hi), start):
             T, q = self._assemble_one(tot_X - bX, tot_y - by, j)
             Ts.append(T)
             qs.append(q)
+            if ck is not None and (j + 1 - start) % every == 0:
+                ck.save_assemble(torch.stack(Ts), torch.stack(qs), j + 1)
+                ck.commit("assemble", j + 1)
+        return Ts, qs
+
+    def _resume_pass2(self, ck, lo: int):
+        """(Ts, qs, first sample to build) from ck's partial (T, q)
+        (reference engine.py:1043-1061), or empty lists and lo."""
+        state = ck.state() if ck is not None else None
+        if state is None or state[0] not in ("assemble", "done"):
+            return [], [], lo
+        ld = ck.load_assemble()
+        if ld is None or ld[2] <= lo:
+            return [], [], lo
+        T_part, q_part, start = ld
+        self.log._log(
+            f"Resuming assemble from checkpoint: {start - lo} jackknife "
+            f"samples already built ({ck.dir})")
+        return (list(torch.from_numpy(T_part).to(self.dev)),
+                list(torch.from_numpy(q_part).to(self.dev)), start)
+
+    def assemble(self):
+        """Pass 2: T_all (J+1, E+1, E+1) and q_all (J+1, E+1, T) float64,
+        one leave-one-out sample at a time on the device; sample J is the
+        full data. With a checkpoint the results are saved and ("done", J)
+        committed."""
+        t0 = time.perf_counter()
+        tot_X, tot_y = self._tot
+        Ts, qs = self._pass2(self._ckpt, tot_X, tot_y, 0, self.J)
         T, q = self._assemble_one(tot_X, tot_y, self.J)
-        Ts.append(T)
-        qs.append(q)
-        self.T_all = torch.stack(Ts).cpu().numpy().astype(np.float64)
-        self.q_all = torch.stack(qs).cpu().numpy().astype(np.float64)
+        self.T_all = torch.stack(Ts + [T]).cpu().numpy().astype(np.float64)
+        self.q_all = torch.stack(qs + [q]).cpu().numpy().astype(np.float64)
         self._end_pass("pass2_s", t0)
+        if self._ckpt is not None:
+            self._ckpt.save_results(self.T_all, self.q_all)
+            self._ckpt.commit("done", self.J)
         if self.cfg.get_trace:
             self.trace_sums = self._compute_trace_sums()
         return self.T_all, self.q_all
@@ -693,8 +894,30 @@ class Engine:
 
     # -------------------------------------------------------------- estimate
     def run_precompute_and_assemble(self):
+        """Both passes, or none when the checkpoint holds a finished run's
+        results (reference engine.py:1299-1313): they are reloaded, no
+        block is read, and the trace sums are recomputed from them."""
+        res = stored_results(self._ckpt)
+        if res is not None:
+            self.T_all, self.q_all = res
+            self.log._log("Resumed completed (T, q) from checkpoint "
+                          f"({self._ckpt.dir}); skipping both passes")
+            if self.cfg.get_trace:
+                self.trace_sums = self._compute_trace_sums()
+            return
         self.precompute()
         self.assemble()
+
+    def run_sharded(self):
+        """Both passes sharded over the jackknife blocks of the current
+        torch.distributed world (parallel/sharded.ShardedRunner; one
+        process per GPU, or one process without a process group): every
+        rank ends with the same T_all / q_all (and trace sums)."""
+        from ..parallel.sharded import ShardedRunner
+        self.T_all, self.q_all = ShardedRunner(self).run()
+        if self.cfg.get_trace:
+            self.trace_sums = self._compute_trace_sums()
+        return self.T_all, self.q_all
 
     def estimate(self, trait: int = 0, method: str = "QR"):
         """Returns (sigma_jackknife (J, E+1), sigma_total (E+1,)).

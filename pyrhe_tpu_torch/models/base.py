@@ -10,6 +10,11 @@ Accepted-but-inert reference knobs: `num_workers`, `multiprocessing`,
 `cuda_num`, and the TPU staging knob `stage_streams`. `device` is "auto"
 (= "cuda"), "cuda", "gpu" or "cpu"; a CUDA device that is not available
 raises (core/engine.pick_device).
+
+Under a torch.distributed job of more than one process the estimate is
+sharded over the jackknife blocks (Engine.run_sharded). The torch idiom is
+one process per GPU (`torchrun --nproc_per_node G`): unlike the JAX
+package, one process does not spread itself over several local devices.
 """
 from __future__ import annotations
 
@@ -19,8 +24,9 @@ import numpy as np
 import torch
 
 from ..core.data import load_dataset
-from ..core.engine import Engine, ModelSpec, RunConfig, check_ported
+from ..core.engine import Engine, ModelSpec, RunConfig, resolve_mm_mode
 from ..core import solver as S
+from ..parallel import distributed
 from ..utils.logger import Logger
 
 
@@ -83,8 +89,8 @@ class BaseModel:
             host_cache_gb=host_cache_gb,
             cache_blocks=cache_blocks,
         )
-        # refuse unported features before reading any file
-        check_ported(self.cfg)
+        # refuse an unknown dtype or mm_mode before reading any file
+        resolve_mm_mode(self.cfg)
 
         self.data = load_dataset(
             geno_file,
@@ -140,8 +146,27 @@ class BaseModel:
 
     def _ensure_computed(self):
         if not self._computed:
-            self.engine.run_precompute_and_assemble()
+            if self._want_sharded():
+                self.engine.run_sharded()
+            else:
+                self.engine.run_precompute_and_assemble()
             self._computed = True
+
+    def _want_sharded(self) -> bool:
+        """The sharded path under a torch.distributed job of more than one
+        process (reference models/base.py:157-177); PYRHE_TPU_DISTRIBUTED=0
+        disables it, and =1 in a single process logs a note and runs the
+        sequential engine. Any num_jack works."""
+        forced = os.environ.get("PYRHE_TPU_DISTRIBUTED")
+        if forced == "0":
+            return False
+        if distributed.world()[1] > 1:
+            return True
+        if forced == "1":
+            self.log._log(
+                "Note: PYRHE_TPU_DISTRIBUTED set but only one process is "
+                "running; running the sequential engine")
+        return False
 
     def estimate(self, trait: int = 0, method: str = "QR"):
         self._ensure_computed()

@@ -378,7 +378,8 @@ def acc_scan_stats(blocks, P, env, mask, totX, toty, *, K, components,
     """Accumulate every (words, annot) block of `blocks` into the totals
     through the aliased stage-2 kernel. totX is (n_comp*K, b2, N), the
     kernels' layout, and is updated in place through per-component
-    (K*b2, N) views; returns (totX, toty)."""
+    (K*b2, N) views; toty is updated in place too, before the next block
+    is asked for (a checkpoint reads both then); returns (totX, toty)."""
     b2 = acc_kw["b2"]
     tots = [totX[c * K:(c + 1) * K].view(K * b2, -1)
             for c in range(len(components))]
@@ -386,7 +387,7 @@ def acc_scan_stats(blocks, P, env, mask, totX, toty, *, K, components,
         _, yXXy = block_stats_pallas_acc_core(
             words, annot, P, env, mask, tots, components=components,
             **acc_kw)
-        toty = toty + yXXy
+        toty.add_(yXXy)
     return totX, toty
 
 

@@ -3,8 +3,11 @@ edge shapes (ragged stage-2 rows, several stage-1 column tiles, one row
 tile) with f32, split2 and unsplit bf16 operands; the engine on the card
 against the port on the CPU (float32, and float64 at rtol 1e-10); bf16
 streaming == cached, and the hybrid and host caches bitwise equal to the
-full cache. Every test here needs a card and skips without one. The module imports neither jax
-nor the JAX package, so it also runs where only the port is installed:
+full cache; checkpointed runs crashed and resumed bitwise, and
+run_sharded() at world size 1 over NCCL bitwise equal to the sequential
+engine. Every test here needs a card and skips without one. The module
+imports neither jax nor the JAX package, so it also runs where only the
+port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -217,8 +220,8 @@ def dataset(tmp_path_factory):
             str(d / "test.env"))
 
 
-def run_engine(dataset, model, device, **cfg):
-    """One engine run on the module's dataset (GENIE: G+GxE+NxE, two
+def make_engine(dataset, model, device, **cfg):
+    """An engine on the module's dataset (GENIE: G+GxE+NxE, two
     environments)."""
     from pyrhe_tpu_torch.core.data import load_dataset
     from pyrhe_tpu_torch.core.engine import Engine, ModelSpec, RunConfig
@@ -228,9 +231,14 @@ def run_engine(dataset, model, device, **cfg):
                         pheno_file=prefix + ".pheno", cov_file=cov,
                         env_file=env if model == "genie" else None,
                         num_random_vec=6, seed=7)
-    eng = Engine(data, ModelSpec.build(model, "G+GxE+NxE", data.num_env),
-                 RunConfig(num_random_vec=6, num_jack=6, seed=7,
-                           device=device, **cfg))
+    return Engine(data, ModelSpec.build(model, "G+GxE+NxE", data.num_env),
+                  RunConfig(num_random_vec=6, num_jack=6, seed=7,
+                            device=device, **cfg))
+
+
+def run_engine(dataset, model, device, **cfg):
+    """One engine run on the module's dataset."""
+    eng = make_engine(dataset, model, device, **cfg)
     eng.run_precompute_and_assemble()
     return eng
 
@@ -305,3 +313,110 @@ def test_cuda_hybrid_and_host_cache_bitwise(cuda_device, dataset, dtype):
         np.testing.assert_array_equal(eng.T_all, full.T_all)
         np.testing.assert_array_equal(eng.q_all, full.q_all)
     assert eng.phase_times["host_cache_hits"] == 6
+
+
+def crash_at(eng, phase_at):
+    """Make eng's checkpoint raise at the commit of (phase, next_j)."""
+    real = eng._ckpt.commit
+
+    def commit(phase, next_j):
+        if (phase, next_j) == phase_at:
+            raise RuntimeError("simulated crash")
+        real(phase, next_j)
+
+    eng._ckpt.commit = commit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model,cfg,phase_at", [
+    ("rhe", dict(streaming=True), ("precompute", 3)),   # acc kernels
+    ("rhe_dom", dict(cache_blocks=2), ("assemble", 4)),  # hybrid pass 2
+    ("genie", dict(streaming=True), ("assemble", 2)),
+])
+def test_cuda_checkpoint_resume_bitwise(cuda_device, dataset, tmp_path,
+                                        dtype, model, cfg, phase_at):
+    """A checkpointed run on the card crashed at one commit and resumed in
+    a new engine: bitwise the uninterrupted run; then a done-resume reads
+    no block."""
+    base = run_engine(dataset, model, "cuda", dtype=dtype, **cfg)
+    ck = str(tmp_path / "ck")
+    eng = make_engine(dataset, model, "cuda", dtype=dtype,
+                      checkpoint_dir=ck, **cfg)
+    crash_at(eng, phase_at)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        eng.run_precompute_and_assemble()
+    for _ in range(2):
+        eng = run_engine(dataset, model, "cuda", dtype=dtype,
+                         checkpoint_dir=ck, **cfg)
+        np.testing.assert_array_equal(eng.T_all, base.T_all)
+        np.testing.assert_array_equal(eng.q_all, base.q_all)
+    assert "pass1_s" not in eng.phase_times      # done: no pass ran
+
+
+@pytest.fixture(scope="module")
+def nccl_world1():
+    """An NCCL process group of one rank in this process."""
+    import os
+    import socket
+
+    from pyrhe_tpu_torch.parallel import distributed
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; on the card run: python -m pytest "
+                    "--noconftest tests/test_torch_cuda.py")
+    saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE",
+                                             "LOCAL_RANK", "MASTER_ADDR",
+                                             "MASTER_PORT")}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        distributed.initialize("cuda", timeout_s=120)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    yield
+    distributed.destroy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["rhe", "rhe_dom", "genie"])
+def test_cuda_run_sharded_nccl_world1(cuda_device, nccl_world1, dataset,
+                                      tmp_path, model):
+    """Engine.run_sharded() through an NCCL group of one rank, cached,
+    streaming and hybrid: bitwise the sequential engine on the card; a
+    sharded checkpointed run crashed mid pass 1 resumes bitwise."""
+    import torch.distributed as dist
+    assert dist.get_backend() == "nccl"
+    for cfg in (dict(), dict(streaming=True), dict(cache_blocks=2)):
+        base = run_engine(dataset, model, "cuda", **cfg)
+        eng = make_engine(dataset, model, "cuda", **cfg)
+        eng.run_sharded()
+        np.testing.assert_array_equal(eng.T_all, base.T_all)
+        np.testing.assert_array_equal(eng.q_all, base.q_all)
+    from pyrhe_tpu_torch.core.checkpoint import Checkpoint
+    ck = str(tmp_path / "ck")
+    real = Checkpoint.commit
+
+    def commit(self, phase, next_j):
+        if (phase, next_j) == ("precompute", 3):
+            raise RuntimeError("simulated crash")
+        real(self, phase, next_j)
+
+    Checkpoint.commit = commit
+    try:
+        with pytest.raises(RuntimeError, match="simulated crash"):
+            make_engine(dataset, model, "cuda", streaming=True,
+                        checkpoint_dir=ck).run_sharded()
+    finally:
+        Checkpoint.commit = real
+    eng = make_engine(dataset, model, "cuda", streaming=True,
+                      checkpoint_dir=ck)
+    eng.run_sharded()
+    np.testing.assert_array_equal(eng.T_all, base.T_all)
+    np.testing.assert_array_equal(eng.q_all, base.q_all)

@@ -1,7 +1,6 @@
 """PyTorch port, host layer: readers and load_dataset against the JAX
 package's, the engine's static arrays against a JAX Engine's, the import
-boundary (no jax, no pandas), device selection and the unported-feature
-errors."""
+boundary (no jax, no pandas) and device selection."""
 import os
 import subprocess
 import sys
@@ -168,6 +167,9 @@ def test_port_imports_neither_jax_nor_pandas():
         "pyrhe_tpu_torch.models.base",
         "pyrhe_tpu_torch.models.rhe", "pyrhe_tpu_torch.models.rhe_dom",
         "pyrhe_tpu_torch.models.genie",
+        "pyrhe_tpu_torch.core.checkpoint",
+        "pyrhe_tpu_torch.parallel.distributed",
+        "pyrhe_tpu_torch.parallel.sharded",
         "pyrhe_tpu_torch.profile_run", "pyrhe_tpu_torch.cohort",
     ]
     code = ("import importlib, sys\n"
@@ -224,17 +226,6 @@ def test_cpu_wrappers_never_touch_the_build(monkeypatch):
     with pytest.raises(ValueError, match="no kernel"):
         kernels.gp_matmul(words.to("meta"), torch.ones((2048, 3),
                                                        device="meta"))
-
-
-@pytest.mark.parametrize("argv", [["--checkpoint_dir", "ck"]])
-def test_unported_flags_raise(small_dataset, tmp_path, argv):
-    from pyrhe_tpu_torch.cli import cli_entry
-    ds = small_dataset
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli_entry(["-g", ds["prefix"], "-p", ds["pheno_path"], "-annot",
-                   ds["annot1_path"], "-k", "4", "-jn", "4", "--device",
-                   "cpu", "--suppress", "-o", str(tmp_path / "o.txt"),
-                   *argv])
 
 
 def test_port_builds_its_own_bed_decoder(small_dataset):
