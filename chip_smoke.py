@@ -30,8 +30,10 @@ non-zero without printing a result:
    again on a C built as the main path builds it (mask column + probes,
    ops/moments._stage1_cols; `ms_main_path_c`) and on GENIE's (mask
    column + three env variants of the probes, 128 split columns;
-   `ms_genie_c`), ytg and ytg² at RHE-DOM's 640 split rows (the g-side
-   columns of both components; `ms_main_path_rows`), ytg at GENIE's 960
+   `ms_genie_c`) and on phase 9's merged sweep group's (mask column +
+   probes + 10 traits, 62 split columns; `ms_sweep_c`), ytg and ytg² at
+   RHE-DOM's 640 split rows (the g-side columns of both components;
+   `ms_main_path_rows`), ytg at GENIE's 960
    (`ms_genie_rows`), and ytg_acc with a 0/1 environment row as its scale
    (checked bitwise against ytg + transform; `ms_env_scale`);
 4. the three main paths at a biobank cohort's size, on one synthesized
@@ -84,7 +86,21 @@ non-zero without printing a result:
    streaming, bitwise equal to phase 4's sequential runs, and a sharded
    checkpointed run crashed and resumed; with two or more cards, the CLI
    in two NCCL ranks under torchrun. Prints the commits, the seconds of
-   snapshot I/O and the bytes on disk.
+   snapshot I/O and the bytes on disk;
+9. the phenotype sweep (pyrhe_tpu_torch.sweep_phenotypes) on the phase-4
+   cohort: 13 phenotype files made from its phenotype (10 complete ones
+   of known h2, 2 sharing one NA set, 1 with another) through run_sweep
+   in this process, cached, with the launch counts set to 0 before and
+   read after: 3 genome passes, each peak within 10 % of phase 4's cached
+   RHE; the merged traits equal to StreamingRHE runs of two of the files
+   alone (rtol 1e-6, the gap printed), every complete file's h2 within 3
+   SE of its truth, every report parsed; `python -m
+   pyrhe_tpu_torch.sweep_phenotypes --streaming` (in a process of its own,
+   beside those runs) equal to it bitwise; the host seconds of grouping,
+   merging and reading. Then, on the example dataset of phase 6, `python
+   -m` runs of
+   utils.generate_annot, simulate_pheno and utils.add_cov_pheno, and RHE
+   on the card re-estimating the simulated sigma^2 within 3 SE.
 
 The last two lines are a JSON object of per-kernel results and the
 {"ok": true, "device": ...} line.
@@ -123,6 +139,11 @@ BF16_RTOL_SIG, BF16_RTOL_H2 = 3e-2, 2e-2   # its bf16 envelope
 # Published H100 SXM peaks at 700 W (bytes/s, flop/s by operand type).
 HBM_BPS, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 SPIN_CYCLES = 4_000_000          # ~2 ms of the card's clock
+# Phase 9: the complete phenotype files' genetic shares a_f (truth total
+# h2 0.4 a_f on the phase-4 cohort), hence T = 10 traits in one pass.
+SWEEP_A = np.linspace(0.25, 1.0, 10)
+SWEEP_T = len(SWEEP_A)
+SWEEP_RTOL = 1e-6                # merged trait vs the file run alone
 REPLACES = {
     "gp_matmul": "pyrhe_tpu/ops/kernels.py:476",
     "gp_matmul_square": "pyrhe_tpu/ops/kernels.py:476",
@@ -325,6 +346,31 @@ def phase_kernels():
         f"{C_genie.dtype}: max abs err vs plain {err:.3e}; kernel "
         f"{ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({by}, "
         f"{100 * bound_ms / ms:.2f} % of it)")
+    # gp on phase 9's merged sweep group: [mask | Z | Uzb | 10 traits]
+    P_sweep = torch.randn(N_PAD, 20 + SWEEP_T, device=dev,
+                          generator=gen) * mask_col
+    _, C_sweep = _stage1_cols((("add", None),), P_sweep, None, mask_col)
+    # a column's result at the merged width against the width of a
+    # single-trait run (mask, 20 probe columns, one trait), halves summed
+    # as ops/moments._stage1 sums them
+    def gp_split2(C):
+        out = K.gp_matmul(words, _hilo(C, 1).contiguous())
+        return out[:, :C.shape[1]] + out[:, C.shape[1]:]
+    same = torch.equal(gp_split2(C_sweep)[:, :22],
+                       gp_split2(C_sweep[:, :22]))
+    C_sweep = _hilo(C_sweep, 1).contiguous()
+    err = _close("gp_matmul sweep C", K.gp_matmul(words, C_sweep),
+                 K.gp_plain(words, C_sweep))
+    ms = _median_ms(lambda: K.gp_matmul(words, C_sweep))
+    res["gp_matmul"]["ms_sweep_c"] = ms
+    bound_ms, by = _bound(words_b + _nbytes(C_sweep) + M_PAD * C_sweep.shape[1]
+                          * 4, 2 * M_PAD * N_PAD * C_sweep.shape[1],
+                          C_sweep.dtype)
+    log(f"[3 kernels] gp_matmul on the {SWEEP_T}-trait sweep group's C "
+        f"{tuple(C_sweep.shape)} {C_sweep.dtype}: max abs err vs plain "
+        f"{err:.3e}; kernel {ms:.4f} ms, bound {bound_ms * 1e3:.1f} us "
+        f"({by}, {100 * bound_ms / ms:.2f} % of it); its first 22 columns "
+        f"bitwise equal to gp at 44 split columns: {same}")
 
     # RHE-DOM's stage 2 over g on the main path: both components' g-side
     # columns, 2 x 160 output rows, 640 split rows
@@ -506,7 +552,8 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels, kw, checks):
     the models' extra arguments; checks: (name, index into h2_total,
     simulated truth) of each heritability held within 3 SE of its truth.
     Returns (the launch counts, {"cached" | "streaming": (T_all, q_all,
-    sigma_ests_total, h2_total)}); the streaming run takes the host block
+    sigma_ests_total, h2_total), "cached_peak_gb": the cached run's peak
+    device memory}); the streaming run takes the host block
     cache (host_cache_gb -1, auto) and must serve all of pass 2 from
     it."""
     import torch
@@ -536,6 +583,7 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels, kw, checks):
                  np.asarray(r["sigma_ests_total"]), np.asarray(r["h2_total"]))
            for key, m, r in (("cached", cached, res_c),
                              ("streaming", streaming, res_s))}
+    out["cached_peak_gb"] = pt_c["peak_gb"]
     eq_T = np.array_equal(cached.engine.T_all, streaming.engine.T_all)
     eq_q = np.array_equal(cached.engine.q_all, streaming.engine.q_all)
     if not (eq_T and eq_q):
@@ -1087,6 +1135,313 @@ def phase_checkpoint(d, prefix, phase4, phase5):
     return count.total
 
 
+@contextlib.contextmanager
+def _wrapped(obj, name, wrap):
+    """obj.name replaced by wrap(the original) inside the body."""
+    real = getattr(obj, name)
+    setattr(obj, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def _timed(seconds, key):
+    """A wrap for _wrapped: each call's wall seconds add to seconds[key],
+    and seconds[key + "_n"] counts the calls."""
+    def wrap(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                seconds[key] = seconds.get(key, 0.0) + (time.perf_counter()
+                                                        - t0)
+                seconds[key + "_n"] = seconds.get(key + "_n", 0) + 1
+        return call
+    return wrap
+
+
+def _sweep_files(prefix, d):
+    """Phase 9's 13 phenotype files, made from the cohort's phenotype y by
+    a seeded numpy generator: p00..p09 complete, y_f = sqrt(a_f) y +
+    sqrt(1 - a_f) e_f with a_f from SWEEP_A (y has variance ~1 and h2 0.4,
+    so y_f's total h2 is 0.4 a_f); q0 and q1 with the same 50 NA rows; r0
+    with 50 other NA rows. Returns their directory."""
+    from pyrhe_tpu_torch.io.readers import read_pheno
+    y = read_pheno(prefix + ".pheno")[0][:, 0]
+    n = y.size
+    rng = np.random.default_rng(2026)
+    rows = rng.choice(n, 100, replace=False).tolist()
+    pdir = os.path.join(d, "phenos")
+    os.makedirs(pdir)
+
+    def write(name, a, na=frozenset()):
+        v = np.sqrt(a) * y + np.sqrt(1.0 - a) * rng.standard_normal(n)
+        with open(os.path.join(pdir, name + ".pheno"), "w") as f:
+            f.write("FID IID pheno\n")
+            f.writelines(f"{i} 1 NA\n" if i in na else f"{i} 1 {v[i]:.6g}\n"
+                         for i in range(n))
+
+    for f, a in enumerate(SWEEP_A):
+        write(f"p{f:02d}", a)
+    write("q0", 0.5, frozenset(rows[:50]))
+    write("q1", 0.75, frozenset(rows[:50]))
+    write("r0", 0.5, frozenset(rows[50:]))
+    return pdir
+
+
+def phase_sweep(d, prefix, phase4):
+    """9. The phenotype sweep on the phase-4 cohort: 13 files (_sweep_files)
+    through run_sweep in this process, cached, with the launch counts set
+    to 0 before and read after and Engine.precompute counted: exactly 3
+    genome passes (10 merged complete traits, the 2 files of one NA set,
+    the file of another), each pass's peak device memory within 10 % of
+    phase 4's cached RHE; then StreamingRHE alone on the last complete
+    file (the merged pass's 10th trait column) and on q0 (their counts
+    read too), each within rtol 1e-6 of its merged trait (sigma^2, SE, h2;
+    the largest gap printed); every complete file's total h2
+    within 3 SE of 0.4 a_f; every report parsing to the summary's sigma^2;
+    `python -m pyrhe_tpu_torch.sweep_phenotypes --streaming` over the same
+    files equal to the cached sweep bitwise. Prints the host seconds of
+    grouping, merging and the load's re-read, each pass's wall, peak and gp
+    split width, and the first file's runtime beside the others' mean.
+    Returns (the launch counts, the phase's seconds)."""
+    import torch
+    from pyrhe_tpu_torch import Logger, StreamingRHE, cohort
+    from pyrhe_tpu_torch import sweep_phenotypes as sweep
+    from pyrhe_tpu_torch.core import data as core_data
+    from pyrhe_tpu_torch.core.engine import Engine
+    from pyrhe_tpu_torch.ops import kernels as K
+    from parse_output import parse_output_file
+    tag = "[9 sweep]"
+    t_start = time.perf_counter()
+    log(f"{tag} device memory allocated before the phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    pdir = _sweep_files(prefix, d)
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(pdir))
+    log(f"{tag} wrote {len(names)} phenotype files of {cohort.N} rows in "
+        f"{time.perf_counter() - t_start:.2f} s")
+    common = ["-g", prefix, "-annot", prefix + ".annot", "-c",
+              prefix + ".cov", "--pheno_glob", os.path.join(pdir, "*.pheno"),
+              "-k", str(cohort.PROBES), "-jn", str(cohort.JACK), "--seed",
+              str(cohort.SEED)]
+    host, passes = {}, []
+
+    def counted(fn):                      # Engine.precompute
+        def call(self):
+            passes.append({"T": self.T_traits,
+                           "width": 2 * (1 + self.static.P.shape[1])})
+            return fn(self)
+        return call
+
+    def measured(fn):                     # Engine.run_precompute_and_assemble
+        def call(self):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(self)
+            torch.cuda.synchronize()
+            passes[-1].update(
+                wall=time.perf_counter() - t0,
+                pass1=self.phase_times["pass1_s"],
+                pass2=self.phase_times["pass2_s"],
+                peak=torch.cuda.max_memory_allocated() / 1e9)
+            return out
+        return call
+
+    out_c = os.path.join(d, "sweep_cached")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _wrapped(sweep, "group_pheno_files", _timed(host, "group")), \
+            _wrapped(sweep, "merge_pheno_files", _timed(host, "merge")), \
+            _wrapped(core_data, "read_pheno", _timed(host, "load_read")), \
+            _wrapped(Engine, "precompute", counted), \
+            _wrapped(Engine, "run_precompute_and_assemble", measured):
+        summary = sweep.run_sweep(sweep.build_parser().parse_args(
+            [*common, "-o", out_c]))
+    t_sweep = time.perf_counter() - t0
+    launches = {"sweep": dict(K.launches)}
+    if [p["T"] for p in passes] != [SWEEP_T, 2, 1]:
+        raise AssertionError(f"{len(names)} files ran {len(passes)} genome "
+                             f"passes of {[p['T'] for p in passes]} traits, "
+                             f"not 3 of [{SWEEP_T}, 2, 1]")
+    if sorted(summary) != names:
+        raise AssertionError(f"summary keys {sorted(summary)} != {names}")
+    log(f"{tag} run_sweep (cached, in process): {len(names)} files -> "
+        f"{len(passes)} genome passes (Engine.precompute ran "
+        f"{len(passes)} times), {t_sweep:.3f} s wall; launches "
+        f"{launches['sweep']}")
+    limit = 1.1 * phase4["RHE"]["cached_peak_gb"]
+    for i, p in enumerate(passes):
+        log(f"{tag} pass {i + 1}: {p['T']} trait(s), gp C split width "
+            f"{p['width']}; both passes {p['wall']:.3f} s (pass 1 "
+            f"{p['pass1']:.3f}, pass 2 {p['pass2']:.3f}); peak device memory "
+            f"{p['peak']:.3f} GB (phase 4 cached RHE "
+            f"{phase4['RHE']['cached_peak_gb']:.3f} GB)")
+        if p["peak"] > limit:
+            raise AssertionError(f"pass {i + 1} peaked at {p['peak']:.3f} GB,"
+                                 f" over {limit:.3f} GB")
+    first = summary["p00"]["runtime"]
+    others = [summary[f"p{f:02d}"]["runtime"] for f in range(1, SWEEP_T)]
+    log(f"{tag} merged group: first file's runtime {first:.3f} s (with the "
+        f"shared genome pass), the other {len(others)} files' mean "
+        f"{statistics.mean(others):.4f} s (max {max(others):.4f} s)")
+    log(f"{tag} host I/O: group_pheno_files {host['group']:.3f} s "
+        f"({len(names)} files read), merge_pheno_files {host['merge']:.3f} s "
+        f"({host['merge_n']} groups written), the load's read_pheno "
+        f"{host['load_read']:.3f} s ({host['load_read_n']} files)")
+    for name in ("gp_matmul", "ytg_matmul"):
+        if launches["sweep"][name] <= 0:
+            raise AssertionError(f"{name} was never launched by the sweep")
+
+    # the CLI's streaming sweep runs in a process of its own while this
+    # one runs the solo comparisons and the checks (they share the card and
+    # the host, so its walls are not the sweep's own: those are above)
+    out_s = os.path.join(d, "sweep_streaming")
+    t0 = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m",
+                            "pyrhe_tpu_torch.sweep_phenotypes", *common, "-o",
+                            out_s, "--streaming"], cwd=ROOT)
+    try:
+        # StreamingRHE alone on files of the merged and of the NA-set group
+        K.reset_launch_counts()
+        gap = 0.0
+        solo = (f"p{SWEEP_T - 1:02d}", "q0")
+        for name in solo:
+            model = StreamingRHE(
+                geno_file=prefix, annot_file=prefix + ".annot",
+                pheno_file=os.path.join(pdir, name + ".pheno"),
+                cov_file=prefix + ".cov", num_jack=cohort.JACK,
+                num_random_vec=cohort.PROBES, seed=cohort.SEED, device="cuda",
+                log=Logger(suppress=True, debug_mode=False))
+            res = model(trait=0)
+            del model
+            for field in ("sigma_ests_total", "sig_errs", "h2_total"):
+                a = np.asarray(summary[name][field])
+                b = np.asarray(res[field])
+                scale = np.abs(b).max()
+                if not np.allclose(a, b, rtol=SWEEP_RTOL,
+                                   atol=SWEEP_RTOL * scale):
+                    raise AssertionError(f"{name} {field}: merged {a} vs "
+                                         f"alone {b} beyond rtol "
+                                         f"{SWEEP_RTOL}")
+                gap = max(gap, np.abs(a - b).max() / scale)
+        launches["solo"] = dict(K.launches)
+        if launches["solo"]["ytg_acc_matmul"] <= 0:
+            raise AssertionError("ytg_acc_matmul was never launched by the "
+                                 "streaming solo runs")
+        log(f"{tag} StreamingRHE alone on {', '.join(solo)}: sigma^2, SE, h2 "
+            f"== merged within rtol {SWEEP_RTOL}; largest gap {gap:.3e} "
+            f"of max |value| ({'exactly 0' if gap == 0 else 'not 0'}); "
+            f"launches {launches['solo']}")
+
+        truth = sum(cohort.SIGMA)
+        h2s = []
+        for f, a in enumerate(SWEEP_A):
+            r = summary[f"p{f:02d}"]
+            h2, se = r["h2_total"][-1], r["h2_errs"][-1]
+            h2s.append(f"{h2:.4f}/{truth * a:.4f}")
+            if abs(h2 - truth * a) > 3 * se:
+                raise AssertionError(f"p{f:02d}: total h2 {h2} (SE {se}) "
+                                     f"more than 3 SE from {truth * a}")
+        log(f"{tag} complete files' total h2 / truth 0.4 a_f, each within 3 "
+            "SE: " + ", ".join(h2s))
+        for name, r in summary.items():
+            got = parse_output_file(os.path.join(out_c, name + ".txt"))
+            sig = [g["value"] for g in got["sigma2_g"]] + [
+                got["sigma2_e"]["value"]]
+            if not np.allclose(sig, r["sigma_ests_total"], rtol=1e-9,
+                               atol=0):
+                raise AssertionError(f"{name}.txt: sigma^2 {sig} != "
+                                     f"summary's {r['sigma_ests_total']}")
+        rc = cli.wait(timeout=900)
+    finally:
+        if cli.poll() is None:            # a check failed: stop the CLI
+            cli.kill()
+            cli.wait()
+    if rc != 0:
+        raise subprocess.CalledProcessError(rc, cli.args)
+    t_cli = time.perf_counter() - t0
+    got = {}
+    for out in (out_c, out_s):
+        with open(os.path.join(out, "summary.json")) as f:
+            got[out] = json.load(f)
+    for name, r in got[out_c].items():
+        for field, v in r.items():
+            if field != "runtime" and got[out_s][name][field] != v:
+                raise AssertionError(f"--streaming {name} {field} "
+                                     f"{got[out_s][name][field]} != cached "
+                                     f"{v}")
+    t_phase = time.perf_counter() - t_start
+    log(f"{tag} python -m pyrhe_tpu_torch.sweep_phenotypes --streaming: "
+        f"{t_cli:.1f} s wall (new process, beside the solo runs); every "
+        f"trait's results == the cached sweep's bitwise; every report "
+        f"parses to the summary's sigma^2; sweep on the cohort "
+        f"{t_phase:.1f} s")
+    total = {name: launches["sweep"][name] + launches["solo"][name]
+             for name in K.KERNELS}
+    return total, t_phase
+
+
+def phase_utilities(d, prefix):
+    """9 (utilities). On the example dataset of phase 6, each as `python -m`
+    in a process of its own: utils.generate_annot (8 bins, one-hot),
+    simulate_pheno (sigma 0.3 over single.annot, 2 replicates) and
+    utils.add_cov_pheno over its output (the standardized covariates
+    added); then RHE on the card re-estimates sigma^2 of the first
+    replicate within 3 SE of 0.3. Returns the seconds taken."""
+    from pyrhe_tpu_torch import RHE, Logger
+    from pyrhe_tpu_torch.io.readers import read_cov
+    tag = "[9 sweep]"
+    t_start = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": ROOT}
+
+    def run(module, *args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", f"pyrhe_tpu_torch.{module}",
+                            *args], check=True, cwd=d, env=env,
+                           capture_output=True, text=True)
+        log(f"{tag} python -m pyrhe_tpu_torch.{module}: "
+            f"{r.stdout.strip().splitlines()[-1]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    annot = os.path.join(d, "generated.annot")
+    run("utils.generate_annot", "-g", prefix, "-b", "8", "-o", annot,
+        "--seed", "1")
+    a = np.loadtxt(annot, dtype=np.int64, ndmin=2)
+    if a.shape != (10000, 8) or not np.all(a.sum(axis=1) == 1):
+        raise AssertionError(f"generate_annot wrote a {a.shape} table that "
+                             "is not one-hot over 8 bins")
+    sim = os.path.join(d, "sim")
+    run("simulate_pheno", "-g", prefix, "-annot",
+        os.path.join(d, "single.annot"), "--sigma", "0.3", "--replicates",
+        "2", "--seed", "3", "-o", sim)
+    run("utils.add_cov_pheno", "--pheno_dir", sim, "--cov", prefix + ".cov")
+    y = np.loadtxt(os.path.join(sim, "0.phen"), skiprows=1, usecols=2)
+    y_cov = np.loadtxt(os.path.join(sim, "0_with_cov.phen"), skiprows=1,
+                       usecols=2)
+    cov, _ = read_cov(prefix + ".cov", std=True)
+    if not np.allclose(y_cov, y + cov.sum(axis=1), rtol=0, atol=1e-6):
+        raise AssertionError("add_cov_pheno: 0_with_cov.phen is not 0.phen "
+                             "plus the standardized covariates")
+    # the estimator takes no intercept column, so the shift that
+    # standardizing adds to the covariate effect would stay in the
+    # residual: the replicate is re-estimated without it
+    model = RHE(geno_file=prefix, annot_file=os.path.join(d, "single.annot"),
+                pheno_file=os.path.join(sim, "0.phen"), num_jack=100,
+                num_random_vec=10, seed=42, device="cuda",
+                log=Logger(suppress=True, debug_mode=False))
+    res = model(trait=0)
+    sig, se = float(res["sigma_ests_total"][0]), float(res["sig_errs"][0])
+    if abs(sig - 0.3) > 3 * se:
+        raise AssertionError(f"simulated sigma 0.3 re-estimated as {sig} "
+                             f"(SE {se}): more than 3 SE away")
+    t = time.perf_counter() - t_start
+    log(f"{tag} RHE on the card, replicate 0: sigma^2_g {sig:.5f} (SE "
+        f"{se:.5f}) vs simulated 0.3; utilities {t:.1f} s")
+    return t
+
+
 def _example(d):
     """The example dataset (example/make_example.py's seeds)."""
     from pyrhe_tpu_torch.io import synth
@@ -1309,9 +1664,15 @@ def main():
             f"phase's runs: {launches8}")
         for name, n in launches8.items():
             launches[name] += n
+        launches9, t9 = phase_sweep(d, prefix, phase4)
+        for name, n in launches9.items():
+            launches[name] += n
     with tempfile.TemporaryDirectory(prefix="rhe_smoke_ex_") as d:
         phase_small(d)
         phase_exports(d, os.path.join(d, "test"))
+        t9 += phase_utilities(d, os.path.join(d, "test"))
+    log(f"[9 sweep] {t9:.1f} s (the sweep on the cohort and the utilities); "
+        f"launches in the phase's counted runs: {launches9}")
     src = os.path.relpath(K._SRC, ROOT)
     kernels = [{
         "name": name, "route": "cuda", "source": src,

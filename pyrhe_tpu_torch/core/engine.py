@@ -65,7 +65,8 @@ from ..io.bed import clean_packed
 from ..ops.decode import imputed_dosages
 from ..ops.kernels import ROW_TILE, TN, pad_to, plane_permutation
 from ..ops.moments import (acc_scan_stats, block_stats_core,
-                           block_stats_pallas_core, mm, nxe_stats)
+                           block_stats_pallas_core, mm, nxe_stats,
+                           stage1_colsum)
 from ..utils.logger import Logger
 from ..utils.types import GenoImputeMethod
 from . import solver as S
@@ -494,6 +495,8 @@ class Engine:
         if self.spec.model == "genie":
             mask[self.K:] = True
         self.stoch_mask = torch.as_tensor(mask, device=self.dev)
+        self.csum = stage1_colsum(self.spec.components, st.P, st.env,
+                                  st.valid_mask)
         if self.num_nxe:
             self.nxe = nxe_stats(st.env, st.Z, st.Uzb, st.Y, self.b2,
                                  self.B)
@@ -607,7 +610,7 @@ class Engine:
 
     def _stat_kw(self) -> dict:
         return dict(n_indiv=self.data.num_indv, b2=self.b2,
-                    components=self.spec.components)
+                    components=self.spec.components, csum=self.csum)
 
     def _block_stats(self, words, annot):
         """Per-block stats in the kernels' (E_geno, b2, N) layout, in the

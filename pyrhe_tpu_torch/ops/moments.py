@@ -76,8 +76,20 @@ def mm(a, b, mm_mode, out_dtype):
 
 
 def _colsum(x):
-    """Accurate reduction (mul+reduce, not a product — see normal_eq._gram)."""
-    return torch.sum(x, dim=0)
+    """Column sums of x (n, W), each column reduced alone as one contiguous
+    vector, so a column's sum is the same bits whatever W is: a trait
+    merged into a multi-trait pass (pyrhe_tpu_torch.sweep_phenotypes) gets
+    the stats of its run alone. Accurate reduction (mul+reduce, not a
+    product — see normal_eq._gram)."""
+    return torch.stack([col.sum() for col in x.T.contiguous()])
+
+
+def stage1_colsum(components, P_perm, env_perm, valid_mask):
+    """Column sums over individuals of the stage-1 operand [mask | P per
+    env variant] (_stage1_cols): the same for every block of a run, so the
+    engine computes them once and passes them to the cores as `csum`."""
+    return _colsum(_stage1_cols(components, P_perm, env_perm,
+                                valid_mask[:, None])[1])
 
 
 def _hilo(R32, dim):
@@ -141,7 +153,11 @@ def _component_stats(kind, U, annot_f, b2, d, mean_stat, alpha=None):
     standardization fold's correction row."""
     m, K = annot_f.shape
     Uy = U[:, b2:]
-    ys = torch.sum((Uy * Uy)[:, None, :] * annot_f[:, :, None], dim=0)
+    # one reduction per trait, so an entry does not depend on how many
+    # traits ride the pass (as _colsum)
+    ys = (torch.stack([torch.sum((u * u)[:, None] * annot_f, dim=0)
+                       for u in Uy.unbind(1)], dim=1) if Uy.shape[1]
+          else torch.zeros((K, 0), dtype=U.dtype, device=U.device))
     W = (U[:, None, :b2] * annot_f[:, :, None]).reshape(m, K * b2)
     Yd = d[:, None] * W
     rank1 = torch.sum(mean_stat[:, None] * Yd, dim=0)
@@ -226,15 +242,17 @@ class _Comp(NamedTuple):
 
 
 def _prepare(gp, annot_f, P_perm, env_perm, valid_mask, *, n_indiv,
-             components, b2):
+             components, b2, csum=None):
     """Stage 1 (through gp, see _kernel_products) + standardization
-    algebra + per-component stage-2 operands, shared by every core.
+    algebra + per-component stage-2 operands, shared by every core. csum:
+    stage1_colsum of the same operands, computed here when not given.
     Returns one _Comp per component."""
     _check_components(components)
     Bp = P_perm.shape[1]
     variants, C_all = _stage1_cols(components, P_perm, env_perm,
                                    valid_mask[:, None])
-    csum = _colsum(C_all)
+    if csum is None:
+        csum = _colsum(C_all)
     GP = gp(C_all)                                   # (m_pad, 1 + Bp*V)
     mean = GP[:, 0] / n_indiv
     d_add = _add_scale(mean)
@@ -258,7 +276,7 @@ def _prepare(gp, annot_f, P_perm, env_perm, valid_mask, *, n_indiv,
 
 
 def _block_stats(gp, ytg, annot_f, P_perm, env_perm, valid_mask, *,
-                 n_indiv, components, b2):
+                 n_indiv, components, b2, csum=None):
     """The standard core over the products gp and ytg (_kernel_products or
     _exact_products): stage 1, the algebra, ONE stage-2 product over all
     components' g-side columns plus ONE square product over the stacked
@@ -266,7 +284,8 @@ def _block_stats(gp, ytg, annot_f, P_perm, env_perm, valid_mask, *,
     m, K = annot_f.shape
     N = P_perm.shape[0]
     comps = _prepare(gp, annot_f, P_perm, env_perm, valid_mask,
-                     n_indiv=n_indiv, components=components, b2=b2)
+                     n_indiv=n_indiv, components=components, b2=b2,
+                     csum=csum)
     XXG = ytg(torch.cat([c.Y for c in comps], dim=1))   # (n_comp*K*b2, N)
     dom_cols = [c.Y2 for c in comps if c.kind == "dom"]
     if dom_cols:
@@ -301,6 +320,7 @@ def block_stats_pallas_core(
     components: tuple,   # (("add", env_idx|None), ...)
     b2: int,             # probe columns that participate in XXP (B or 2B)
     mode: str,           # "split2" | "bf16" | "f32" (KERNEL_MODES)
+    csum=None,           # stage1_colsum of the operands, or None
 ):
     """Per-block stats through the fused kernels, in float32. Returns
     (XXP (n_comp*K, N, b2), yXXy (n_comp*K, T), M (n_comp*K,)); XXP is a
@@ -312,18 +332,18 @@ def block_stats_pallas_core(
         raise ValueError(f"mode {mode!r} is not a kernel mode {KERNEL_MODES}")
     return _block_stats(*_kernel_products(words, mode), annot_f, P_perm,
                         env_perm, valid_mask, n_indiv=n_indiv,
-                        components=components, b2=b2)
+                        components=components, b2=b2, csum=csum)
 
 
 def block_stats_core(words, annot_f, P_perm, env_perm, valid_mask, *,
-                     n_indiv: int, components: tuple, b2: int):
+                     n_indiv: int, components: tuple, b2: int, csum=None):
     """block_stats_pallas_core in mode "exact" (the reference's non-Pallas
     block_stats_core): g decoded in P_perm's dtype (the working dtype,
     float64 or float32) and both products as torch.matmul in it; the same
     layout, algebra and returns."""
     return _block_stats(*_exact_products(words, P_perm.dtype), annot_f,
                         P_perm, env_perm, valid_mask, n_indiv=n_indiv,
-                        components=components, b2=b2)
+                        components=components, b2=b2, csum=csum)
 
 
 def block_stats_pallas_acc_core(
@@ -334,6 +354,7 @@ def block_stats_pallas_acc_core(
     components: tuple,
     b2: int,
     mode: str,
+    csum=None,
 ):
     """Specialization of block_stats_pallas_core whose stage 2 adds into
     the running totals (ops/kernels.ytg_acc_matmul; ytg_acc2_matmul for
@@ -356,7 +377,7 @@ def block_stats_pallas_acc_core(
     N = P_perm.shape[0]
     comps = _prepare(_kernel_products(words, mode)[0], annot_f, P_perm,
                      env_perm, valid_mask, n_indiv=n_indiv,
-                     components=components, b2=b2)
+                     components=components, b2=b2, csum=csum)
     split = mode == "split2"
     ones_n = torch.ones((1, N), dtype=torch.float32, device=P_perm.device)
     mask_row = valid_mask[None, :].float().contiguous()

@@ -3,11 +3,11 @@ edge shapes (ragged stage-2 rows, several stage-1 column tiles, one row
 tile) with f32, split2 and unsplit bf16 operands; the engine on the card
 against the port on the CPU (float32, and float64 at rtol 1e-10); bf16
 streaming == cached, and the hybrid and host caches bitwise equal to the
-full cache; checkpointed runs crashed and resumed bitwise, and
-run_sharded() at world size 1 over NCCL bitwise equal to the sequential
-engine. Every test here needs a card and skips without one. The module
-imports neither jax nor the JAX package, so it also runs where only the
-port is installed:
+full cache; checkpointed runs crashed and resumed bitwise; the phenotype
+sweep's merged traits bitwise equal to solo runs; and run_sharded() at
+world size 1 over NCCL bitwise equal to the sequential engine. Every test
+here needs a card and skips without one. The module imports neither jax
+nor the JAX package, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -352,6 +352,48 @@ def test_cuda_checkpoint_resume_bitwise(cuda_device, dataset, tmp_path,
         np.testing.assert_array_equal(eng.T_all, base.T_all)
         np.testing.assert_array_equal(eng.q_all, base.q_all)
     assert "pass1_s" not in eng.phase_times      # done: no pass ran
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_merged_equals_solo(cuda_device, dataset, tmp_path):
+    """The phenotype sweep on the card (float32, split2): two complete
+    files merge into one pass whose wider gp stage-1 operand gives each
+    trait the bits of its file run alone (sigma^2, SE, h2, ...); a file
+    with NA rows runs alone; streaming == cached bitwise."""
+    import shutil
+
+    from pyrhe_tpu_torch.io import synth
+    from pyrhe_tpu_torch.io.readers import read_annot
+    from pyrhe_tpu_torch.sweep_phenotypes import build_parser, run_sweep
+
+    prefix, annot, cov, _ = dataset
+    d = tmp_path / "phenos"
+    d.mkdir()
+    shutil.copy(prefix + ".pheno", d / "a.pheno")
+    synth.simulate_pheno_file(str(d / "b"), prefix, [0.05] * 8,
+                              read_annot(annot)[1], seed=21)
+    with open(d / "a.pheno") as f:
+        lines = f.read().splitlines()
+    with open(d / "c.pheno", "w") as f:
+        for i, ln in enumerate(lines):
+            cols = ln.split()
+            f.write((" ".join(cols[:2] + ["NA"]) if i in (3, 50) else ln)
+                    + "\n")
+
+    def sweep(out, *extra):
+        return run_sweep(build_parser().parse_args([
+            "-g", prefix, "-annot", annot, "-c", cov, "--pheno_glob",
+            str(d / "*.pheno"), "-o", str(tmp_path / out), "-k", "6",
+            "-jn", "6", "--seed", "7", "--device", "cuda", *extra]))
+
+    merged, solo = sweep("merged"), sweep("solo", "--no_merge")
+    streamed = sweep("streaming", "--streaming")
+    assert set(merged) == set(solo) == set(streamed) == {"a", "b", "c"}
+    for key in merged:
+        for field, value in merged[key].items():
+            if field != "runtime":
+                assert value == solo[key][field], f"{key}/{field}"
+                assert value == streamed[key][field], f"{key}/{field}"
 
 
 @pytest.fixture(scope="module")

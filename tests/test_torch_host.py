@@ -171,6 +171,10 @@ def test_port_imports_neither_jax_nor_pandas():
         "pyrhe_tpu_torch.parallel.distributed",
         "pyrhe_tpu_torch.parallel.sharded",
         "pyrhe_tpu_torch.profile_run", "pyrhe_tpu_torch.cohort",
+        "pyrhe_tpu_torch.constant", "pyrhe_tpu_torch.utils.generate_annot",
+        "pyrhe_tpu_torch.utils.add_cov_pheno",
+        "pyrhe_tpu_torch.simulate_pheno",
+        "pyrhe_tpu_torch.sweep_phenotypes",
     ]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -183,6 +187,26 @@ def test_port_imports_neither_jax_nor_pandas():
     env = {**os.environ, "PYTHONPATH": ROOT}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "CLEAN" in res.stdout
+
+
+def test_host_tools_import_without_torch():
+    """The host-only tools (numpy) do not import torch: the package imports
+    its model classes on first use. The classes are still there."""
+    code = ("import sys\n"
+            "import pyrhe_tpu_torch.simulate_pheno, pyrhe_tpu_torch.constant\n"
+            "import pyrhe_tpu_torch.utils.generate_annot\n"
+            "import pyrhe_tpu_torch.utils.add_cov_pheno\n"
+            "assert 'torch' not in sys.modules, 'torch imported'\n"
+            "from pyrhe_tpu_torch import RHE, StreamingGENIE, Logger\n"
+            "assert 'torch' in sys.modules and RHE.MODEL == 'rhe'\n"
+            "import pyrhe_tpu_torch as p\n"
+            "assert p.StreamingRHE.STREAMING and not hasattr(p, 'nope')\n"
+            "print('CLEAN')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={**os.environ, "PYTHONPATH": ROOT},
+                         cwd=ROOT)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "CLEAN" in res.stdout
 
