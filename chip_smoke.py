@@ -23,7 +23,9 @@ non-zero without printing a result:
    Median times of the kernel, its plain version and the library
    yardstick (torch.matmul on the tile decoded beforehand, f32 operands,
    TF32 off: the product alone for ytg_acc, both products for ytg_acc2),
-   and each kernel's bound, for split2 and (`bf16_*` keys) bf16: the
+   and each kernel's bound, for split2 and (`bf16_*` keys) bf16, all
+   from pyrhe_tpu_torch.bench.kernels.measure (the rows of `python -m
+   pyrhe_tpu_torch.bench.kernels`, the same timer): the
    larger of its bytes (inputs read once, outputs written once) over 3.35
    TB/s and its flops over the peak for the operand type (989 TF/s bf16
    on the tensor cores, 67 TF/s f32), H100 SXM at 700 W. gp is timed
@@ -100,7 +102,17 @@ non-zero without printing a result:
    merging and reading. Then, on the example dataset of phase 6, `python
    -m` runs of
    utils.generate_annot, simulate_pheno and utils.add_cov_pheno, and RHE
-   on the card re-estimating the simulated sigma^2 within 3 SE.
+   on the card re-estimating the simulated sigma^2 within 3 SE;
+10. the measurement tools (pyrhe_tpu_torch.bench), each run as `python -m`
+   in a process of its own on the card, on the phase-4 cohort where they
+   read data: matvec (narrow and wide; then with BENCH_DOM=1), kernels,
+   e2e RHE cached and streaming with --repeats 2, host_read at 1, 2, 4 and
+   8 threads, staging at 1 and 4 streams from pinned and pageable memory.
+   Each tool's JSON line is printed and must name this card, hold only
+   finite positive numbers (sigma^2 aside) and no mfu_pct or share of a
+   bound over 100; matvec's acc body must equal its standard body bitwise,
+   e2e's sigma^2 must equal phase 4's runs bitwise in every repeat, and
+   every repeat's samples must be there.
 
 The last two lines are a JSON object of per-kernel results and the
 {"ok": true, "device": ...} line.
@@ -123,10 +135,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# Phase-3 shapes: one jackknife block of the phase-4 runs.
-M_PAD, N_PAD, W, QR = 1024, 100352, 22, 320
 GENIE_COMPS = (("add", None), ("add", 0), ("add", 1))   # G + 2 GxE
-RTOL = 1e-4                      # f32 summation order over ~1e5 / ~1e3 terms
 # Reference implementation's run on the example dataset (values and SEs),
 # as in tests/test_golden_example.py REFERENCE_RUN.
 REFERENCE_RUN = {
@@ -136,9 +145,6 @@ REFERENCE_RUN = {
 }
 SPLIT2_RTOL = 3e-4               # tests/test_engine_vs_oracle.py envelope
 BF16_RTOL_SIG, BF16_RTOL_H2 = 3e-2, 2e-2   # its bf16 envelope
-# Published H100 SXM peaks at 700 W (bytes/s, flop/s by operand type).
-HBM_BPS, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
-SPIN_CYCLES = 4_000_000          # ~2 ms of the card's clock
 # Phase 9: the complete phenotype files' genetic shares a_f (truth total
 # h2 0.4 a_f on the phase-4 cohort), hence T = 10 traits in one pass.
 SWEEP_A = np.linspace(0.25, 1.0, 10)
@@ -182,75 +188,20 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def _median_ms(fn, reps: int = 20) -> float:
-    """Median device time of one call of fn (CUDA events around it). Before
-    each call a 128 MB write evicts the 50 MB L2 (the main path's other
-    kernels leave it cold) and the card spins ~2 ms (torch.cuda._sleep)
-    while the host enqueues the call, so the events time the device work
-    and not the Python launch overhead."""
-    import torch
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def _random_words(gen, m_pad, n_pad, m_real, dev):
-    """Cleaned int32 words: codes 00/10/11 only, rows >= m_real zero."""
-    import torch
-    codes = torch.tensor([0, 2, 3], device=dev)[
-        torch.randint(0, 3, (m_pad, n_pad // 16, 16), device=dev,
-                      generator=gen)]
-    shifts = torch.arange(0, 32, 2, device=dev)
-    words = (codes << shifts).sum(dim=2).to(torch.int32)
-    words[m_real:] = 0
-    return words.contiguous()
-
-
-def _close(name, got, ref):
-    import torch
-    err = (got - ref).abs().max().item()
-    atol = RTOL * ref.abs().max().item()
-    if not torch.allclose(got, ref, rtol=RTOL, atol=atol):
-        raise AssertionError(f"{name}: kernel disagrees with plain version "
-                             f"(max abs err {err:.3e}, atol {atol:.3e})")
-    return err
-
-
-def _nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def _bound(nbytes, flops, dtype):
-    """(bound ms, what sets it): the larger of nbytes over the memory rate
-    and flops over the peak for the operand dtype."""
-    import torch
-    t_bytes = nbytes / HBM_BPS
-    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def phase_kernels():
     import torch
+    # the timer, bounds and shapes of python -m pyrhe_tpu_torch.bench.kernels
+    from pyrhe_tpu_torch.bench.kernels import (M_PAD, N_PAD, QR, W,
+                                               max_abs_err, measure,
+                                               random_words)
+    from pyrhe_tpu_torch.bench.timing import bound, median_ms, nbytes
     from pyrhe_tpu_torch.ops import kernels as K
     from pyrhe_tpu_torch.ops.moments import _hilo, _stage1_cols
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
-    words = _random_words(gen, M_PAD, N_PAD, 1000, dev)
+    words = random_words(gen, M_PAD, N_PAD, 1000, dev)
     # the yardstick's operands, decoded beforehand (not timed)
     dense = {sq: K.decode_words(words, sq) for sq in (False, True)}
     C = torch.randn(N_PAD, W, device=dev, generator=gen)
@@ -261,27 +212,20 @@ def phase_kernels():
     Yb = Yt[:Q].to(torch.bfloat16).contiguous()          # (160, m) bf16
     res = {}
 
-    def record(name, case, err, ms, plain_ms, library_ms, nbytes, flops,
-               dtype, **extra):
-        """Errors over every case; times and bound of the split case (the
+    def record(name, case, err, **extra):
+        """Errors over every case; extra keys of the split case (the
         float32 main path on the card) and, under bf16_* keys, of the
-        unsplit bf16 case (the bf16 main path)."""
+        unsplit bf16 case (the bf16 main path). Their times come from
+        bench.kernels.measure at the end of the phase."""
         r = res.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        bound_ms, by = _bound(nbytes, flops, dtype)
-        got = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=by, bound_share=bound_ms / ms,
-                   **extra)
         if case == "split":
-            r.update(got)
+            r.update(extra)
         elif case == "bf16":
-            r.update({f"bf16_{k}": v for k, v in got.items()},
+            r.update({f"bf16_{k}": v for k, v in extra.items()},
                      bf16_max_abs_err=err)
-        return (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({by}, "
-                f"{100 * bound_ms / ms:.2f} % of it)")
 
-    words_b = _nbytes(words)
+    words_b = nbytes(words)
     for square in (False, True):
         name = "gp_matmul_square" if square else "gp_matmul"
         for case, Cop in (("f32", C), ("split", _hilo(C, 1).contiguous()),
@@ -292,7 +236,7 @@ def phase_kernels():
                 raise AssertionError(f"{name} {case}: two launches differ "
                                      "(must be deterministic)")
             ref = K.gp_plain(words, Cop, square)
-            err = _close(f"{name} {case}", got, ref)
+            err = max_abs_err(f"{name} {case}", got, ref)
             # against float64: the kernel and the plain f32 product
             r64 = dense[square].double() @ C.double()
             e64 = {}
@@ -300,18 +244,11 @@ def phase_kernels():
                 x = x[:, :W] + x[:, W:] if split else x
                 e64[who] = (x.double() - r64).abs().max().item()
             rel = r64.abs().max().item()
-            ms = _median_ms(lambda: K.gp_matmul(words, Cop, square))
-            pms = _median_ms(lambda: K.gp_plain(words, Cop, square), reps=5)
-            Cf = Cop.float()
-            lms = _median_ms(lambda: dense[square] @ Cf, reps=10)
-            line = record(name, case, err, ms, pms, lms,
-                          words_b + _nbytes(Cop, got),
-                          2 * M_PAD * N_PAD * Cop.shape[1], Cop.dtype,
-                          err_vs_f64=e64["kernel"])
+            record(name, case, err, err_vs_f64=e64["kernel"])
             log(f"[3 kernels] {name} {case} C {tuple(Cop.shape)} "
                 f"{Cop.dtype}: max abs err vs plain {err:.3e}; vs float64 "
                 f"kernel {e64['kernel']:.3e}, plain f32 {e64['plain']:.3e} "
-                f"(max |ref| {rel:.3e}); bitwise repeatable; {line}")
+                f"(max |ref| {rel:.3e}); bitwise repeatable")
 
     # gp on the main path's C: [valid mask | Z | Uzb | y] (1 + 21 columns)
     perm = torch.as_tensor(K.plane_permutation(N_PAD), device=dev)
@@ -322,9 +259,9 @@ def phase_kernels():
     for square in (False, True):
         name = "gp_matmul_square" if square else "gp_matmul"
         got = K.gp_matmul(words, C_main, square)
-        err = _close(f"{name} main-path C", got,
-                     K.gp_plain(words, C_main, square))
-        ms = _median_ms(lambda: K.gp_matmul(words, C_main, square))
+        err = max_abs_err(f"{name} main-path C", got,
+                          K.gp_plain(words, C_main, square))
+        ms = median_ms(lambda: K.gp_matmul(words, C_main, square))
         res[name]["ms_main_path_c"] = ms
         log(f"[3 kernels] {name} on the main path's C {tuple(C_main.shape)}"
             f" {C_main.dtype}: max abs err vs plain {err:.3e}; kernel "
@@ -335,13 +272,13 @@ def phase_kernels():
     env = env * mask_col
     _, C_genie = _stage1_cols(GENIE_COMPS, P, env, mask_col)
     C_genie = _hilo(C_genie, 1).contiguous()
-    err = _close("gp_matmul GENIE C", K.gp_matmul(words, C_genie),
-                 K.gp_plain(words, C_genie))
-    ms = _median_ms(lambda: K.gp_matmul(words, C_genie))
+    err = max_abs_err("gp_matmul GENIE C", K.gp_matmul(words, C_genie),
+                      K.gp_plain(words, C_genie))
+    ms = median_ms(lambda: K.gp_matmul(words, C_genie))
     res["gp_matmul"]["ms_genie_c"] = ms
-    bound_ms, by = _bound(words_b + _nbytes(C_genie) + M_PAD * C_genie.shape[1]
-                          * 4, 2 * M_PAD * N_PAD * C_genie.shape[1],
-                          C_genie.dtype)
+    bound_ms, by = bound(words_b + nbytes(C_genie) + M_PAD * C_genie.shape[1]
+                         * 4, 2 * M_PAD * N_PAD * C_genie.shape[1],
+                         C_genie.dtype)
     log(f"[3 kernels] gp_matmul on GENIE's C {tuple(C_genie.shape)} "
         f"{C_genie.dtype}: max abs err vs plain {err:.3e}; kernel "
         f"{ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({by}, "
@@ -359,13 +296,13 @@ def phase_kernels():
     same = torch.equal(gp_split2(C_sweep)[:, :22],
                        gp_split2(C_sweep[:, :22]))
     C_sweep = _hilo(C_sweep, 1).contiguous()
-    err = _close("gp_matmul sweep C", K.gp_matmul(words, C_sweep),
-                 K.gp_plain(words, C_sweep))
-    ms = _median_ms(lambda: K.gp_matmul(words, C_sweep))
+    err = max_abs_err("gp_matmul sweep C", K.gp_matmul(words, C_sweep),
+                      K.gp_plain(words, C_sweep))
+    ms = median_ms(lambda: K.gp_matmul(words, C_sweep))
     res["gp_matmul"]["ms_sweep_c"] = ms
-    bound_ms, by = _bound(words_b + _nbytes(C_sweep) + M_PAD * C_sweep.shape[1]
-                          * 4, 2 * M_PAD * N_PAD * C_sweep.shape[1],
-                          C_sweep.dtype)
+    bound_ms, by = bound(words_b + nbytes(C_sweep) + M_PAD * C_sweep.shape[1]
+                         * 4, 2 * M_PAD * N_PAD * C_sweep.shape[1],
+                         C_sweep.dtype)
     log(f"[3 kernels] gp_matmul on the {SWEEP_T}-trait sweep group's C "
         f"{tuple(C_sweep.shape)} {C_sweep.dtype}: max abs err vs plain "
         f"{err:.3e}; kernel {ms:.4f} ms, bound {bound_ms * 1e3:.1f} us "
@@ -386,7 +323,7 @@ def phase_kernels():
                 raise AssertionError(f"{name} {case}: two launches differ "
                                      "(must be deterministic)")
             ref = K.ytg_plain(words, Yop, square)
-            err = _close(f"{name} {case}", got, ref)
+            err = max_abs_err(f"{name} {case}", got, ref)
             # against float64 of the f32 Yt: the kernel and the plain f32
             # product (split: the two halves summed)
             r64 = (Yt if case == "f32" else Yt[:Q]).double() @ dense[
@@ -395,22 +332,15 @@ def phase_kernels():
                    .item() for who, x in (("kernel", got), ("plain", ref))}
             rel = r64.abs().max().item()
             del r64
-            ms = _median_ms(lambda: K.ytg_matmul(words, Yop, square))
-            pms = _median_ms(lambda: K.ytg_plain(words, Yop, square), reps=5)
-            Yf = Yop.float()
-            lms = _median_ms(lambda: Yf @ dense[square], reps=10)
-            line = record(name, case, err, ms, pms, lms,
-                          words_b + _nbytes(Yop, got),
-                          2 * Yop.shape[0] * M_PAD * N_PAD, Yop.dtype,
-                          err_vs_f64=e64["kernel"])
+            record(name, case, err, err_vs_f64=e64["kernel"])
             log(f"[3 kernels] {name} {case} Yt {tuple(Yop.shape)} "
                 f"{Yop.dtype}: max abs err vs plain {err:.3e}; vs float64 "
                 f"kernel {e64['kernel']:.3e}, plain f32 {e64['plain']:.3e} "
-                f"(max |ref| {rel:.3e}); bitwise repeatable; {line}")
-        _close(f"{name} Yt {tuple(Y640.shape)}",
-               K.ytg_matmul(words, Y640, square),
-               K.ytg_plain(words, Y640, square))
-        ms = _median_ms(lambda: K.ytg_matmul(words, Y640, square))
+                f"(max |ref| {rel:.3e}); bitwise repeatable")
+        max_abs_err(f"{name} Yt {tuple(Y640.shape)}",
+                    K.ytg_matmul(words, Y640, square),
+                    K.ytg_plain(words, Y640, square))
+        ms = median_ms(lambda: K.ytg_matmul(words, Y640, square))
         res[name]["ms_main_path_rows"] = ms
         log(f"[3 kernels] {name} at the RHE-DOM main path's "
             f"{Y640.shape[0]} split rows: kernel {ms:.4f} ms")
@@ -418,12 +348,12 @@ def phase_kernels():
     Y960 = torch.randn(3 * Q, M_PAD, device=dev, generator=gen)
     Y960[:, 1000:] = 0.0
     Y960 = _hilo(Y960, 0).contiguous()
-    err = _close(f"ytg_matmul Yt {tuple(Y960.shape)}",
-                 K.ytg_matmul(words, Y960), K.ytg_plain(words, Y960))
-    ms = _median_ms(lambda: K.ytg_matmul(words, Y960))
+    err = max_abs_err(f"ytg_matmul Yt {tuple(Y960.shape)}",
+                      K.ytg_matmul(words, Y960), K.ytg_plain(words, Y960))
+    ms = median_ms(lambda: K.ytg_matmul(words, Y960))
     res["ytg_matmul"]["ms_genie_rows"] = ms
-    bound_ms, by = _bound(words_b + _nbytes(Y960) + Y960.shape[0] * N_PAD * 4,
-                          2 * Y960.shape[0] * M_PAD * N_PAD, Y960.dtype)
+    bound_ms, by = bound(words_b + nbytes(Y960) + Y960.shape[0] * N_PAD * 4,
+                         2 * Y960.shape[0] * M_PAD * N_PAD, Y960.dtype)
     log(f"[3 kernels] ytg_matmul at the GENIE main path's {Y960.shape[0]} "
         f"split rows: max abs err vs plain {err:.3e}; kernel {ms:.4f} ms, "
         f"bound {bound_ms * 1e3:.1f} us ({by}, {100 * bound_ms / ms:.2f} % "
@@ -452,22 +382,14 @@ def phase_kernels():
                     "ytg_matmul + transform (must be bitwise equal)")
             ref = K.ytg_acc_plain(words, Yop, rank1, scale, mask,
                                   tot0.clone(), split)
-            err = max(err, _close(f"ytg_acc_matmul {case}", got, ref))
-        tot = tot0.clone()
-        ms = _median_ms(lambda: K.ytg_acc_matmul(
-            words, Yop, rank1, scale, mask, tot, split=split))
-        pms = _median_ms(lambda: K.ytg_acc_plain(
-            words, Yop, rank1, scale, mask, tot, split), reps=5)
-        Yf = Yop.float()
-        lms = _median_ms(lambda: Yf @ dense[False], reps=10)
-        line = record("ytg_acc_matmul", case, err, ms, pms, lms,
-                      words_b + _nbytes(Yop, rank1, scale, mask, tot, tot),
-                      2 * Yop.shape[0] * M_PAD * N_PAD, Yop.dtype)
+            err = max(err, max_abs_err(f"ytg_acc_matmul {case}", got, ref))
+        record("ytg_acc_matmul", case, err)
         log(f"[3 kernels] ytg_acc_matmul {case} Yt "
             f"{tuple(Yop.shape)} {Yop.dtype}: bitwise == ytg + transform "
             f"(scales: env row, ones, random); max abs err vs plain "
-            f"{err:.3e}; {line}")
-    ms = _median_ms(lambda: K.ytg_acc_matmul(
+            f"{err:.3e}")
+    tot = tot0.clone()
+    ms = median_ms(lambda: K.ytg_acc_matmul(
         words, Yh, rank1, env_row, mask, tot, split=True))
     res["ytg_acc_matmul"]["ms_env_scale"] = ms
     log(f"[3 kernels] ytg_acc_matmul split=True with a 0/1 env row as "
@@ -493,22 +415,27 @@ def phase_kernels():
                 "ytg_matmul calls + transform (must be bitwise equal)")
         ref = K.ytg_acc2_plain(words, Y1, Y2, rank1, mask, tot0.clone(),
                                split)
-        err = _close(f"ytg_acc2_matmul {case}", got, ref)
-        tot = tot0.clone()
-        ms = _median_ms(lambda: K.ytg_acc2_matmul(
-            words, Y1, Y2, rank1, mask, tot, split=split))
-        pms = _median_ms(lambda: K.ytg_acc2_plain(
-            words, Y1, Y2, rank1, mask, tot, split), reps=5)
-        Y1f, Y2f = Y1.float(), Y2.float()
-        lms = _median_ms(lambda: (Y1f @ dense[False], Y2f @ dense[True]),
-                         reps=10)
-        line = record("ytg_acc2_matmul", case, err, ms, pms, lms,
-                      words_b + _nbytes(Y1, Y2, rank1, mask, tot, tot),
-                      4 * Y1.shape[0] * M_PAD * N_PAD, Y1.dtype)
+        err = max_abs_err(f"ytg_acc2_matmul {case}", got, ref)
+        record("ytg_acc2_matmul", case, err)
         log(f"[3 kernels] ytg_acc2_matmul {case} Yt1, Yt2 "
             f"{tuple(Y1.shape)} {Y1.dtype}: bitwise == two ytg + transform;"
-            f" max abs err vs plain {err:.3e}; {line}")
+            f" max abs err vs plain {err:.3e}")
     del dense
+    torch.cuda.empty_cache()
+
+    # the split2 and bf16 times and bounds: python -m
+    # pyrhe_tpu_torch.bench.kernels's rows, from the same function
+    for row in measure(dev):
+        pre = "" if row["layout"] == "split2" else "bf16_"
+        res[row["name"]].update(
+            {pre + k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+            **{pre + "bound_share": row["bound_pct"] / 100})
+        log(f"[3 kernels] {row['name']} {row['layout']}: kernel "
+            f"{row['ms']:.4f} ms (quartiles {row['ms_q1']:.4f}-"
+            f"{row['ms_q3']:.4f}), plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.1f} "
+            f"us ({row['bound_by']}, {row['bound_pct']:.2f} % of it)")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return res
@@ -1646,6 +1573,112 @@ def _check_trace(tdir, ref_dir):
         raise AssertionError(f"GENIE wrote no {stem}.all.tr")
 
 
+def _bench(module, *args, env=None):
+    """`python -m pyrhe_tpu_torch.bench.<module> args` on the card: its last
+    line as JSON, printed, after the checks every tool's line must pass
+    (the card's name; every number finite and positive, the sigma
+    estimates and the config's cache split aside; every mfu_pct and share
+    of a bound at most 100)."""
+    import torch
+    from pyrhe_tpu_torch.bench.timing import finite_positive
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", f"pyrhe_tpu_torch.bench.{module}", *args],
+        capture_output=True, text=True, cwd=ROOT,
+        env={**os.environ, **(env or {})})
+    if res.returncode != 0:
+        raise RuntimeError(f"bench.{module} {' '.join(args)} exited "
+                           f"{res.returncode}:\n{res.stderr[-3000:]}")
+    line = res.stdout.strip().splitlines()[-1]
+    log(f"[10 bench] {module} {' '.join(args)} "
+        f"{' '.join(f'{k}={v}' for k, v in (env or {}).items())} "
+        f"({time.perf_counter() - t0:.1f} s wall): {line}")
+    out = json.loads(line)
+    if out["device"]["name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench.{module}: device {out['device']} is not "
+                             f"{torch.cuda.get_device_name(0)}")
+    bad = finite_positive(out, skip=("sigma", "cache_blocks",
+                                     "max_abs_err"))
+    if bad:
+        raise AssertionError(f"bench.{module}: not finite and positive: "
+                             f"{bad}")
+
+    def shares(obj):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                if k in ("mfu_pct", "bound_pct"):
+                    yield k, v
+                else:
+                    yield from shares(v)
+        elif isinstance(obj, list):
+            for v in obj:
+                yield from shares(v)
+    over = [(k, v) for k, v in shares(out) if v > 100]
+    if over:
+        raise AssertionError(f"bench.{module}: shares over 100 %: {over}")
+    return out
+
+
+def phase_bench(prefix, phase4):
+    """10. The measurement tools (pyrhe_tpu_torch.bench), each in a process
+    of its own on the card, on the phase-4 cohort where they read data:
+    matvec (narrow and wide; then with a dominance component), kernels,
+    e2e RHE cached and streaming with 2 repeats (sigma^2 bitwise equal to
+    phase 4's runs of the same cohort, dtype and seed), host_read at 1, 2,
+    4 and 8 threads, staging at 1 and 4 streams from pinned and pageable
+    memory. Returns the phase's seconds."""
+    from pyrhe_tpu_torch import cohort
+    from pyrhe_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    for env in ({}, {"BENCH_DOM": "1"}):
+        out = _bench("matvec", env=env)
+        for cfg in (out, out["wide"]):
+            if cfg["acc_equals_standard"] is not True:
+                raise AssertionError(f"matvec {cfg['config']}: acc body != "
+                                     "standard body")
+    out = _bench("kernels")
+    got = sorted((r["name"], r["layout"]) for r in out["kernels"])
+    if got != sorted((n, lay) for n in K.KERNELS
+                     for lay in ("split2", "bf16")):
+        raise AssertionError(f"bench.kernels timed {got}")
+    repeats = 2
+    cohort_args = ["--prefix", prefix, "--cov", prefix + ".cov", "-N",
+                   str(cohort.N), "-M", str(cohort.M), "-k",
+                   str(cohort.PROBES), "-jn", str(cohort.JACK), "--seed",
+                   str(cohort.SEED), "--repeats", str(repeats)]
+    for key, flags in (("cached", []), ("streaming", ["--streaming"])):
+        out = _bench("e2e", *cohort_args, *flags)
+        want = [float(x) for x in phase4["RHE"][key][2]]
+        if out["sigma"] != want or not out["sigma_repeats_equal"]:
+            raise AssertionError(f"e2e RHE {key}: sigma {out['sigma']} "
+                                 f"(repeats equal: "
+                                 f"{out['sigma_repeats_equal']}) != phase "
+                                 f"4's {want}")
+        counts = [s["n"] for s in (*out["phases_s"].values(),
+                                   *out["engine_phases_s"].values(),
+                                   out["peak_gb"])]
+        counts += [len(v) for v in out["samples_s"].values()]
+        if set(counts) != {repeats}:
+            raise AssertionError(f"e2e RHE {key}: sample counts {counts}, "
+                                 f"not {repeats}")
+        hits = out["engine_phases_s"].get("host_cache_hits")
+        if key == "streaming" and hits["median"] != cohort.JACK:
+            raise AssertionError(f"e2e streaming: {hits} host cache hits")
+        log(f"[10 bench] e2e RHE {key}: sigma^2 bitwise equal to phase 4's "
+            f"in each of {repeats} repeats")
+    out = _bench("host_read", "--prefix", prefix, "--threads", "1,2,4,8",
+                 "--span_gb", "0.25")
+    if [r["threads"] for r in out["rows"]] != [1, 2, 4, 8]:
+        raise AssertionError(f"host_read rows {out['rows']}")
+    out = _bench("staging", "--streams", "1,4")
+    if sorted((r["memory"], r["streams"]) for r in out["rows"]) != [
+            ("pageable", 1), ("pageable", 4), ("pinned", 1), ("pinned", 4)]:
+        raise AssertionError(f"staging rows {out['rows']}")
+    dt = time.perf_counter() - t0
+    log(f"[10 bench] {dt:.1f} s (7 tools, each in a process of its own)")
+    return dt
+
+
 def main():
     t_start = time.perf_counter()
     phase_env()
@@ -1667,12 +1700,13 @@ def main():
         launches9, t9 = phase_sweep(d, prefix, phase4)
         for name, n in launches9.items():
             launches[name] += n
-    with tempfile.TemporaryDirectory(prefix="rhe_smoke_ex_") as d:
-        phase_small(d)
-        phase_exports(d, os.path.join(d, "test"))
-        t9 += phase_utilities(d, os.path.join(d, "test"))
-    log(f"[9 sweep] {t9:.1f} s (the sweep on the cohort and the utilities); "
-        f"launches in the phase's counted runs: {launches9}")
+        with tempfile.TemporaryDirectory(prefix="rhe_smoke_ex_") as d_ex:
+            phase_small(d_ex)
+            phase_exports(d_ex, os.path.join(d_ex, "test"))
+            t9 += phase_utilities(d_ex, os.path.join(d_ex, "test"))
+        log(f"[9 sweep] {t9:.1f} s (the sweep on the cohort and the "
+            f"utilities); launches in the phase's counted runs: {launches9}")
+        phase_bench(prefix, phase4)
     src = os.path.relpath(K._SRC, ROOT)
     kernels = [{
         "name": name, "route": "cuda", "source": src,

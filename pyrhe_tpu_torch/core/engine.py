@@ -260,6 +260,20 @@ def stored_results(ck):
     return ck.load_results()
 
 
+def imputation_fills(sums, nmiss, n_total: int, seed: int) -> np.ndarray:
+    """Per-SNP HWE imputation draws of one block from its observed dosage
+    sums and missing counts, reproducing the reference's RNG discipline
+    exactly: reseed per block, one uniform draw per SNP whether or not it
+    has missing entries (base.py:265-289,510)."""
+    n_obs = n_total - nmiss
+    p = np.divide(sums, n_obs, out=np.zeros_like(sums),
+                  where=n_obs > 0) * 0.5
+    rval = np.random.RandomState(seed).random_sample(len(sums))
+    d0 = (1 - p) ** 2
+    d1 = 2 * p * (1 - p)
+    return np.where(rval < d0, 0.0, np.where(rval < d0 + d1, 1.0, 2.0))
+
+
 def _ticking(blocks, j: int, covered):
     """Yield the blocks, which start at block j, and call covered(j + 1)
     once the consumer asks for the next one or finishes: block j's work is
@@ -523,20 +537,6 @@ class Engine:
         return M
 
     # ------------------------------------------------------------- block pass
-    def _fill_from_stats(self, sums, nmiss, n_total, m_block):
-        """Per-SNP HWE imputation draws, reproducing the reference's RNG
-        discipline exactly: reseed per block, one uniform draw per SNP
-        whether or not it has missing entries (base.py:265-289,510)."""
-        n_obs = n_total - nmiss
-        p = np.divide(sums, n_obs, out=np.zeros_like(sums),
-                      where=n_obs > 0) * 0.5
-        rs = np.random.RandomState(self.cfg.seed)
-        rval = rs.random_sample(m_block)
-        d0 = (1 - p) ** 2
-        d1 = 2 * p * (1 - p)
-        return np.where(rval < d0, 0.0,
-                        np.where(rval < d0 + d1, 1.0, 2.0))
-
     def _load_block(self, j: int):
         """Block j's host side, from the host cache when it holds the block
         (counted in phase_times["host_cache_hits"]), else read and kept
@@ -564,7 +564,8 @@ class Engine:
         packed = bed.read_packed_block(s, e)
         if self.cfg.geno_impute_method == "binary":
             sums, nmiss = bed.packed_col_stats(packed)
-            fill = self._fill_from_stats(sums, nmiss, self.data.num_indv, m)
+            fill = imputation_fills(sums, nmiss, self.data.num_indv,
+                                    self.cfg.seed)
         else:
             fill = np.zeros(m)
         m_pad = pad_to(m, ROW_TILE)

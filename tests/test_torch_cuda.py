@@ -462,3 +462,27 @@ def test_cuda_run_sharded_nccl_world1(cuda_device, nccl_world1, dataset,
     eng.run_sharded()
     np.testing.assert_array_equal(eng.T_all, base.T_all)
     np.testing.assert_array_equal(eng.q_all, base.q_all)
+
+
+@pytest.mark.cuda
+def test_cuda_matvec_acc_equals_standard(cuda_device):
+    """pyrhe_tpu_torch.bench.matvec's body through the kernels at a small
+    size: the streaming pass-1 body's totals bitwise equal to the cached
+    body's, split2 and bf16, with GxE and with dominance components; then
+    one timed configuration, whose rate is positive and below the peak."""
+    from pyrhe_tpu_torch.bench import matvec
+    for mode in ("split2", "bf16"):
+        for num_env, dom, acc in ((1, False, "ytg_acc_matmul"),
+                                  (0, True, "ytg_acc2_matmul")):
+            case = matvec.make_case(5000, 256, 4, 10, use_cov=True,
+                                    num_env=num_env, dom=dom,
+                                    dev=cuda_device)
+            blocks = matvec.make_blocks(3, 256, case.P.shape[0],
+                                        cuda_device)
+            before = dict(tk.launches)
+            assert matvec.acc_equals_standard(case, blocks, mode)
+            assert tk.launches[acc] > before[acc]
+            assert tk.launches["gp_matmul"] > before["gp_matmul"]
+    out = matvec.bench_config(8192, 256, 1, 10, 2, dev=cuda_device, reps=2)
+    assert out["acc_equals_standard"] and out["value"] > 0
+    assert 0 < out["mfu_pct"] < 100 and out["device_busy_pct"] > 0

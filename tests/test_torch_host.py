@@ -175,6 +175,10 @@ def test_port_imports_neither_jax_nor_pandas():
         "pyrhe_tpu_torch.utils.add_cov_pheno",
         "pyrhe_tpu_torch.simulate_pheno",
         "pyrhe_tpu_torch.sweep_phenotypes",
+        "pyrhe_tpu_torch.bench.timing", "pyrhe_tpu_torch.bench.matvec",
+        "pyrhe_tpu_torch.bench.kernels", "pyrhe_tpu_torch.bench.e2e",
+        "pyrhe_tpu_torch.bench.host_read", "pyrhe_tpu_torch.bench.staging",
+        "pyrhe_tpu_torch.bench.scaling_study",
     ]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
