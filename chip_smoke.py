@@ -64,7 +64,8 @@ non-zero without printing a result:
    and streaming runs; RHE streaming with the host cache off bitwise equal
    to phase 4's (on); the H2D time of one staged block from pinned and
    from pageable memory;
-6. cross-check on the example dataset (N = 5000, M = 10000): RHE (1 bin),
+6. cross-check on the example dataset (N = 5000, M = 10000, written by
+   pyrhe_tpu_torch.make_example): RHE (1 bin),
    RHE-DOM (8 bins) and GENIE G+GxE+NxE (8 bins, one environment) on the
    card (bf16 split2) against the port on the CPU (f32), the reference
    implementation's published RHE run and the RHE-DOM and GENIE golden
@@ -112,9 +113,27 @@ non-zero without printing a result:
    finite positive numbers (sigma^2 aside) and no mfu_pct or share of a
    bound over 100; matvec's acc body must equal its standard body bitwise,
    e2e's sigma^2 must equal phase 4's runs bitwise in every repeat, and
-   every repeat's samples must be there.
+   every repeat's samples must be there;
+11. the example workflow on the card: the example dataset written by
+   `python -m pyrhe_tpu_torch.make_example` in a process of its own, then
+   each of the 12 shipped configs (example/configs/{rhe,rhe_dom,genie}/
+   {no_streaming,streaming}_bin_{1,8}.txt) through
+   pyrhe_tpu_torch.cli.cli_entry in this process, on the card, from the
+   data directory, each config's output redirected into it, with the
+   launch counts set to 0 before the runs and read after them: every
+   estimate within SE overlap and 3e-4·max(1, |golden|) of
+   example/outputs/<model>/<name>.txt and within SE overlap of the
+   reference implementation's output (example/outputs/reference; GENIE
+   streaming against its cached run, as the reference's StreamingGENIE
+   deadlocks), each streaming report equal to its no_streaming twin's on
+   every printed estimate and SE, all six kernels launched; then the
+   two-trait test.pheno.multi through rhe/no_streaming_bin_1 on the card
+   and on the CPU: two traits each, sigma^2 and h2 on the card within the
+   split2 envelope (3e-4) of the CPU's. Prints each run's wall time and
+   the phase's.
 
-The last two lines are a JSON object of per-kernel results and the
+The last two lines are a JSON object of per-kernel results (launches:
+the counted runs of phases 4, 5, 8, 9 and 11) and the
 {"ok": true, "device": ...} line.
 """
 from __future__ import annotations
@@ -1369,24 +1388,6 @@ def phase_utilities(d, prefix):
     return t
 
 
-def _example(d):
-    """The example dataset (example/make_example.py's seeds)."""
-    from pyrhe_tpu_torch.io import synth
-    cwd = os.getcwd()
-    os.chdir(d)
-    try:
-        synth.make_dataset("test", 5000, 10000, seed=42, missing_rate=0.005)
-        a1 = synth.make_annot("single.annot", 10000, 1, seed=42)
-        synth.make_annot("multi.annot", 10000, 8, seed=43)
-        cov = synth.make_cov_file("test.cov", 5000, num_cov=5, seed=42)
-        env = synth.make_env_file("test.env", 5000, num_env=1, seed=42)
-        synth.simulate_pheno_file("test", "test", [0.2], a1, seed=44,
-                                  cov=cov, env=env, sigma_gxe=0.05)
-    finally:
-        os.chdir(cwd)
-    return os.path.join(d, "test")
-
-
 def _example_runs(cls, prefix, annot, **kw):
     """({device: report}, {device: report text}) of one model on the
     example dataset (the example configs' settings; kw overrides them), on
@@ -1426,31 +1427,39 @@ ESTIMATE = re.compile(r"^(Sigma\^2_\w+(?:\[\d+\])?|h2_\w+\[\d+\]|Total h2\w*|"
                       r"([\d.e-]+)$", re.M)
 
 
+def _estimate_lines(text):
+    """[(name, value, SE)] of every estimate line of a report, in the order
+    printed (RHE prints h2 and Total h2 twice: non-overlapping, then
+    overlapping bins)."""
+    return [(n, float(v), float(se)) for n, v, se in ESTIMATE.findall(text)]
+
+
 def _estimates(text):
     """{name: (value, SE)} of every estimate line of a report's text."""
-    return {name: (float(v), float(se))
-            for name, v, se in ESTIMATE.findall(text)}
+    return {name: (v, se) for name, v, se in _estimate_lines(text)}
 
 
-def _check_report_overlap(label, ours, path):
-    """The same estimate names as the report at path, each within SE
-    overlap of it."""
+def _check_report(label, ours, path, rtol=None):
+    """ours against the report at path: the same estimate lines in the same
+    order, each within SE overlap (the reference's is_within_range) and,
+    when rtol is given, within rtol·max(1, |value there|)."""
     with open(path) as f:
-        gold = _estimates(f.read())
-    if sorted(ours) != sorted(gold):
-        raise AssertionError(f"{label}: estimates {sorted(ours)} vs "
-                             f"{sorted(gold)} in {path}")
-    for name, (v, se) in ours.items():
-        gv, gse = gold[name]
+        gold = _estimate_lines(f.read())
+    if [g[0] for g in ours] != [g[0] for g in gold]:
+        raise AssertionError(f"{label}: estimate lines {[g[0] for g in ours]}"
+                             f" vs {[g[0] for g in gold]} in {path}")
+    for (name, v, se), (_, gv, gse) in zip(ours, gold):
         if abs(v - gv) > se + gse:
-            raise AssertionError(f"{label} {name} = {v} (SE {se}) outside "
-                                 f"SE overlap with {gv} (SE {gse}) of "
-                                 f"{path}")
+            raise AssertionError(f"{label} {name} = {v} (SE {se}) outside SE "
+                                 f"overlap with {gv} (SE {gse}) of {path}")
+        if rtol is not None and abs(v - gv) > rtol * max(1.0, abs(gv)):
+            raise AssertionError(f"{label} {name} = {v} vs {gv} of {path}: "
+                                 f"more than {rtol}·max(1, |{gv}|) apart")
 
 
 def phase_small(d):
-    from pyrhe_tpu_torch import RHE, RHE_DOM
-    prefix = _example(d)
+    from pyrhe_tpu_torch import RHE, RHE_DOM, make_example
+    prefix = make_example.main(d)
     out, _ = _example_runs(RHE, prefix, os.path.join(d, "single.annot"))
     vals = {}
     for device, r in out.items():
@@ -1482,7 +1491,8 @@ def phase_small(d):
                for sub in (("rhe_dom",), ("reference", "rhe_dom"))]
     for device, t in text.items():
         for path in goldens:
-            _check_report_overlap(f"RHE-DOM {device}", _estimates(t), path)
+            _check_report(f"RHE-DOM {device}", _estimate_lines(t),
+                          path)
     log(f"[6 small] RHE-DOM example, 8 bins: max |sigma cuda - cpu| "
         f"{gap:.3e} (atol {atol:.3e}); sigma2_e cuda {s_gpu[-1]:.8f} "
         f"cpu {s_cpu[-1]:.8f}; both within SE overlap of "
@@ -1507,7 +1517,8 @@ def _small_genie(d, prefix):
     est = {device: _estimates(t) for device, t in text.items()}
     for device in est:
         for path in goldens:
-            _check_report_overlap(f"GENIE {device}", est[device], path)
+            _check_report(f"GENIE {device}", _estimate_lines(text[device]),
+                          path)
     log(f"[6 small] GENIE G+GxE+NxE example, 8 bins, {len(est['cuda'])} "
         f"estimates: max |sigma cuda - cpu| {gap:.3e} (atol {atol:.3e}); "
         f"Sigma^2_nxe[0] cuda {est['cuda']['Sigma^2_nxe[0]'][0]:.8f} cpu "
@@ -1679,6 +1690,155 @@ def phase_bench(prefix, phase4):
     return dt
 
 
+EXAMPLE_CONFIGS = tuple((model, f"{mode}_bin_{b}")
+                        for model in ("rhe", "rhe_dom", "genie")
+                        for mode in ("no_streaming", "streaming")
+                        for b in (1, 8))
+
+
+def _run_config(d, model, name, tag="", *flags, **overrides):
+    """example configs/<model>/<name>.txt (copied into d) through
+    pyrhe_tpu_torch.cli.cli_entry in this process, from d, with its output
+    redirected into d and any other key replaced by overrides. Returns
+    (report text, wall seconds)."""
+    from pyrhe_tpu_torch.cli import cli_entry
+    out = os.path.join(d, f"out_{model}_{name}{tag}.txt")
+    with open(os.path.join(d, "configs", model, f"{name}.txt")) as f:
+        lines = f.read().splitlines()
+    settings = {"output": out, **overrides}
+    for key, value in settings.items():
+        hits = [i for i, line in enumerate(lines)
+                if line.startswith(f"{key} =")]
+        if len(hits) != 1:
+            raise AssertionError(f"{model}/{name}: {len(hits)} '{key} =' "
+                                 "lines")
+        lines[hits[0]] = f"{key} = {value}"
+    cfg = os.path.join(d, "configs", model, f"{name}{tag}.run.txt")
+    with open(cfg, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        t0 = time.perf_counter()
+        cli_entry(["--config", cfg, "--suppress", *flags])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    with open(out) as f:
+        return f.read(), wall
+
+
+def _trait_sections(text):
+    """{trait: [(name, value, SE)]} of a multi-trait report."""
+    parts = text.split("OUTPUT FOR TRAIT ")[1:]
+    return {int(p.split(":")[0]): _estimate_lines(p) for p in parts}
+
+
+def phase_example(d):
+    """11. The example workflow on the card: the dataset written by `python
+    -m pyrhe_tpu_torch.make_example` in a process of its own, then every
+    shipped config (example/configs/{rhe,rhe_dom,genie}/
+    {no_streaming,streaming}_bin_{1,8}.txt) through cli_entry on the card,
+    from the data directory, with the launch counts set to 0 before the
+    runs and read after them: (a) every estimate within SE overlap and
+    3e-4·max(1, |golden|) of example/outputs/<model>/<name>.txt, (b) within
+    SE overlap of the reference implementation's output (GENIE streaming
+    against its cached run: the reference's StreamingGENIE deadlocks), (c)
+    each streaming report equal to its no_streaming twin on every printed
+    estimate and SE, (d) all six kernels launched; then (e) the two-trait
+    test.pheno.multi through rhe/no_streaming_bin_1 on the card and with
+    --device cpu: two traits each, every sigma^2 and h2 on the card within
+    the split2 envelope (3e-4) of the CPU's. Returns (launches, seconds)."""
+    import shutil
+    from pyrhe_tpu_torch.ops import kernels as K
+    from pyrhe_tpu_torch.parallel import distributed
+    tag = "[11 example]"
+    if distributed.env_world_size() > 1:
+        raise RuntimeError(f"{tag} the environment names a torch.distributed "
+                           "job; cli_entry would join it")
+    t_start = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "pyrhe_tpu_torch.make_example",
+                    "--out", d], check=True, cwd=d, capture_output=True,
+                   env={**os.environ, "PYTHONPATH": ROOT})
+    log(f"{tag} python -m pyrhe_tpu_torch.make_example: "
+        f"{time.perf_counter() - t_start:.1f} s wall, files "
+        f"{sorted(os.listdir(d))}")
+    shutil.copytree(os.path.join(ROOT, "example", "configs"),
+                    os.path.join(d, "configs"))
+    outputs = os.path.join(ROOT, "example", "outputs")
+    raw, walls = {}, {}
+    K.reset_launch_counts()
+    for model, name in EXAMPLE_CONFIGS:
+        label = f"{model}/{name}"
+        text, walls[label] = _run_config(d, model, name)
+        raw[label] = ESTIMATE.findall(text)
+        ours = _estimate_lines(text)
+        if not ours:
+            raise AssertionError(f"{tag} {label}: no estimate in the report")
+        golden = os.path.join(outputs, model, f"{name}.txt")
+        _check_report(label, ours, golden, rtol=SPLIT2_RTOL)
+        ref = f"no_{name.removeprefix('no_')}" if model == "genie" else name
+        reference = os.path.join(outputs, "reference", model, f"{ref}.txt")
+        _check_report(label, ours, reference)
+        log(f"{tag} {label}: {walls[label]:.2f} s wall, {len(ours)} "
+            f"estimates within SE overlap and {SPLIT2_RTOL}·max(1, |golden|) "
+            f"of {os.path.relpath(golden, ROOT)} and within SE overlap of "
+            f"{os.path.relpath(reference, ROOT)}")
+    for model, name in EXAMPLE_CONFIGS:
+        if name.startswith("streaming"):
+            twin = f"{model}/no_{name}"
+            if raw[f"{model}/{name}"] != raw[twin]:
+                raise AssertionError(f"{tag} {model}/{name}: the report "
+                                     f"differs from {twin}'s")
+    log(f"{tag} (c) each streaming report equals its no_streaming twin's on "
+        "every printed estimate and SE (6 pairs)")
+
+    multi = {}
+    text, walls["rhe two traits, cuda"] = _run_config(
+        d, "rhe", "no_streaming_bin_1", "_multi",
+        phenotype="test.pheno.multi")
+    multi["cuda"] = _trait_sections(text)
+    launches = dict(K.launches)
+    missing = [k for k in K.KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag} {missing} never launched ({launches})")
+    text, walls["rhe two traits, cpu"] = _run_config(
+        d, "rhe", "no_streaming_bin_1", "_multi_cpu", "--device", "cpu",
+        phenotype="test.pheno.multi")
+    multi["cpu"] = _trait_sections(text)
+    gaps = []
+    for device, traits in multi.items():
+        if sorted(traits) != [0, 1]:
+            raise AssertionError(f"{tag} two-trait run on {device} reports "
+                                 f"traits {sorted(traits)}")
+    for t in (0, 1):
+        got, want = multi["cuda"][t], multi["cpu"][t]
+        if [g[0] for g in got] != [w[0] for w in want]:
+            raise AssertionError(f"{tag} trait {t}: estimate lines differ "
+                                 "between the card and the CPU")
+        pick = [i for i, w in enumerate(want)
+                if w[0].startswith(("Sigma^2", "h2_", "Total h2"))]
+        g = np.array([got[i][1] for i in pick])
+        c = np.array([want[i][1] for i in pick])
+        atol = SPLIT2_RTOL * np.abs(c).max()
+        if not np.all(np.abs(g - c) <= atol + SPLIT2_RTOL * np.abs(c)):
+            raise AssertionError(f"{tag} trait {t}: sigma^2 / h2 on the card "
+                                 f"{g} vs CPU {c}, outside the split2 "
+                                 f"envelope (rtol {SPLIT2_RTOL}, atol "
+                                 f"{atol:.3e})")
+        gaps.append(np.abs(g - c).max())
+    log(f"{tag} (e) test.pheno.multi: 2 traits on the card "
+        f"({walls['rhe two traits, cuda']:.2f} s wall) and on the CPU "
+        f"({walls['rhe two traits, cpu']:.2f} s); max |card - CPU| over "
+        f"sigma^2 and h2 {max(gaps):.3e}")
+    dt = time.perf_counter() - t_start
+    log(f"{tag} (d) launches in the 12 configs and the two-trait card run: "
+        f"{launches}")
+    cfg_s = sum(walls[f"{m}/{n}"] for m, n in EXAMPLE_CONFIGS)
+    log(f"{tag} {dt:.1f} s (the 12 configs {cfg_s:.1f} s of it)")
+    return launches, dt
+
+
 def main():
     t_start = time.perf_counter()
     phase_env()
@@ -1707,6 +1867,10 @@ def main():
         log(f"[9 sweep] {t9:.1f} s (the sweep on the cohort and the "
             f"utilities); launches in the phase's counted runs: {launches9}")
         phase_bench(prefix, phase4)
+    with tempfile.TemporaryDirectory(prefix="rhe_smoke_example_") as d_11:
+        launches11, _ = phase_example(d_11)
+    for name, n in launches11.items():
+        launches[name] += n
     src = os.path.relpath(K._SRC, ROOT)
     kernels = [{
         "name": name, "route": "cuda", "source": src,

@@ -10,7 +10,8 @@ setup(
     packages=find_packages(include=["pyrhe_tpu", "pyrhe_tpu.*",
                                     "pyrhe_tpu_torch", "pyrhe_tpu_torch.*"]),
     package_data={"pyrhe_tpu.io": ["_native/*.cpp"],
-                  "pyrhe_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "pyrhe_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -21,6 +22,7 @@ setup(
     entry_points={
         "console_scripts": [
             "pyrhe-tpu = pyrhe_tpu.cli:cli_entry",
+            "pyrhe-tpu-torch = pyrhe_tpu_torch.cli:cli_entry",
         ],
     },
 )

@@ -162,22 +162,12 @@ def test_port_rhe_split2_within_envelope(small_dataset, annot, cov):
 
 @pytest.fixture(scope="module")
 def example_dir(tmp_path_factory):
-    """The example dataset (example/make_example.py's seeds), made by the
-    port's own generator."""
-    from pyrhe_tpu_torch.io import synth
+    """The example dataset, written by the port's own generator
+    (pyrhe_tpu_torch.make_example, example/make_example.py's files and
+    seeds), with example/configs beside it."""
+    from pyrhe_tpu_torch import make_example
     d = tmp_path_factory.mktemp("torch_example")
-    cwd = os.getcwd()
-    os.chdir(d)
-    try:
-        synth.make_dataset("test", 5000, 10000, seed=42, missing_rate=0.005)
-        a1 = synth.make_annot("single.annot", 10000, 1, seed=42)
-        synth.make_annot("multi.annot", 10000, 8, seed=43)
-        cov = synth.make_cov_file("test.cov", 5000, num_cov=5, seed=42)
-        env = synth.make_env_file("test.env", 5000, num_env=1, seed=42)
-        synth.simulate_pheno_file("test", "test", [0.2], a1, seed=44,
-                                  cov=cov, env=env, sigma_gxe=0.05)
-    finally:
-        os.chdir(cwd)
+    make_example.main(str(d))
     shutil.copytree(os.path.join(ROOT, "example", "configs"), d / "configs")
     return d
 
