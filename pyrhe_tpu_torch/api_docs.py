@@ -55,7 +55,7 @@ MODULES = [
     ("pyrhe_tpu_torch.bench.host_read", "host .bed read + clean rates"),
     ("pyrhe_tpu_torch.bench.staging", "host-to-device copy rates"),
     ("pyrhe_tpu_torch.bench.scaling_study", "run walls over cohort sizes"),
-    ("pyrhe_tpu_torch.profile_run", "device time by kernel, idle share"),
+    ("pyrhe_tpu_torch.profile_run", "device time by kernel and by span, idle share"),
     ("pyrhe_tpu_torch.sweep_phenotypes", "many phenotypes, one genome pass"),
     ("pyrhe_tpu_torch.simulate_pheno", "replicate phenotype simulation"),
     ("pyrhe_tpu_torch.make_example", "the example dataset"),
@@ -63,6 +63,8 @@ MODULES = [
     ("pyrhe_tpu_torch.utils.add_cov_pheno", "covariate effects on phenotypes"),
     ("pyrhe_tpu_torch.utils.generate_annot", "random annotation files"),
     ("pyrhe_tpu_torch.utils.logger", "report logger"),
+    ("pyrhe_tpu_torch.utils.trace",
+     "spans and device timers on the profiler's clock"),
     ("pyrhe_tpu_torch.utils.types", "enums"),
     ("pyrhe_tpu_torch.cli", "command-line interface"),
     ("pyrhe_tpu_torch.constant", ".env-style path configuration"),

@@ -6,13 +6,14 @@ with type coercion against argparse defaults (reference run_rhe.py:13-26,
 158-220), and the same report schema, so parse_output.py and other
 downstream regex parsers keep working. `--device` defaults to the CUDA
 card ("auto"); `--device cpu` runs the same path on the CPU.
-`--profile_dir d` wraps the trait loop in torch.profiler and writes a
-Chrome trace into d. `--checkpoint_dir d` snapshots the run into d every
-`--checkpoint_every` blocks, and a rerun with the same flags resumes from
-it. Under torchrun (`torchrun --nproc_per_node G -m pyrhe_tpu_torch.cli
-...`, one process per GPU) the run joins the process group and shards the
-jackknife blocks over the ranks; rank 0 alone prints and writes the
-report, and PYRHE_TPU_DISTRIBUTED=0 keeps every process sequential.
+`--profile_dir d` wraps the load and the trait loop in torch.profiler and
+writes a Chrome trace into d, with the engine's `pyrhe.*` spans.
+`--checkpoint_dir d` snapshots the run into d every `--checkpoint_every`
+blocks, and a rerun with the same flags resumes from it. Under torchrun
+(`torchrun --nproc_per_node G -m pyrhe_tpu_torch.cli ...`, one process per
+GPU) the run joins the process group and shards the jackknife blocks over
+the ranks; rank 0 alone prints and writes the report, and
+PYRHE_TPU_DISTRIBUTED=0 keeps every process sequential.
 `--num_workers`, `--cuda_num` and `--stage_streams` are accepted for
 config compatibility and unused.
 """
@@ -234,11 +235,10 @@ def main(args):
     else:
         raise ValueError("Unsupported Model")
 
-    rhe = cls(**params)
-
     results = {}
     runtime = 0.0
-    with _profiler(args.profile_dir, rhe.engine.dev) as prof:
+    with _profiler(args.profile_dir, args.device) as prof:
+        rhe = cls(**params)
         for trait in range(rhe.num_traits):
             start = time.time()
             res_dict = rhe(trait=trait)
@@ -255,17 +255,21 @@ def main(args):
     return runtime
 
 
-def _profiler(profile_dir, device):
-    """torch.profiler over the host and, on the card, the device activity
-    when profile_dir is set (the reference's jax.profiler trace), else a
-    no-op context yielding None."""
+def _profiler(profile_dir, device: str):
+    """torch.profiler over the host's threads and, on the card, the device
+    activity when profile_dir is set (the reference's jax.profiler trace),
+    from the load through the last trait, else a no-op context yielding
+    None."""
     if not profile_dir:
         return contextlib.nullcontext()
     import torch
+
+    from .core.engine import pick_device
+    from .utils.trace import profiler
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if pick_device(device).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=acts)
+    return profiler(acts)
 
 
 def join_process_group(args) -> bool:

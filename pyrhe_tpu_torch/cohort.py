@@ -34,13 +34,14 @@ def genie_kw(prefix: str) -> dict:
 
 def model(cls, prefix: str, **kw):
     """cls (RHE, StreamingRHE, GENIE with genie_kw(prefix), ...) on the
-    cohort at prefix, on the card."""
+    cohort at prefix, on the card; kw may set num_random_vec (default
+    PROBES)."""
     from .utils.logger import Logger
+    kw.setdefault("num_random_vec", PROBES)
     return cls(geno_file=prefix, annot_file=prefix + ".annot",
                pheno_file=prefix + ".pheno", cov_file=prefix + ".cov",
-               num_jack=JACK, num_random_vec=PROBES, seed=SEED,
-               device="cuda", log=Logger(suppress=True, debug_mode=False),
-               **kw)
+               num_jack=JACK, seed=SEED, device="cuda",
+               log=Logger(suppress=True, debug_mode=False), **kw)
 
 
 def cli_args(prefix: str, env_file: str | None = None,

@@ -68,6 +68,7 @@ from ..ops.moments import (acc_scan_stats, block_stats_core,
                            block_stats_pallas_core, mm, nxe_stats,
                            stage1_colsum)
 from ..utils.logger import Logger
+from ..utils.trace import DeviceTimer, span
 from ..utils.types import GenoImputeMethod
 from . import solver as S
 from .checkpoint import Checkpoint, CheckpointBusy
@@ -285,8 +286,56 @@ def _ticking(blocks, j: int, covered):
 
 
 class Engine:
+    """The two passes and the solve of one run on one device.
+
+    phase_times holds the run's counters, summed over both passes (the
+    keys a run reaches; seconds unless noted):
+      engine_init_s    host clock around __init__
+      pass1_s, pass2_s host clock of each pass, ending in a device
+                       synchronize
+      host_read_s      the prefetch thread's read + clean, overlapped with
+                       the device's work
+      prefetch_wait_s  host clock of the main thread blocked on the
+                       prefetch thread (Engine._blocks)
+      h2d_s            device time of the block copies (CUDA events)
+      block_stats_s    stream time of the block stats (the kernels and
+                       their torch glue), per block from the stream's event
+                       as `pyrhe.block_stats` opens to the one as it
+                       closes; recorded while tracing is on
+      assemble_s       the same over each `pyrhe.sample` (the leave-one-out
+                       subtraction, the Gram products, the covariate
+                       projection, the dot products), J + 1 samples;
+                       recorded while tracing is on
+      host_cache_hits  blocks served from the host block cache (a count)
+      blocks_read      blocks read from the .bed (a count)
+    The device times are resolved after each pass's synchronize; on the
+    CPU block_stats_s and assemble_s read the host clock and h2d_s is 0.
+    A stream time holds the stream's waits for the host's next launch
+    inside the span too, which a profiler lengthens: profile_run gives
+    the card's own seconds under each span.
+
+    While a torch profiler runs, the engine opens `pyrhe.*` spans
+    (utils/trace.py) at its boundaries: engine_init (plan_cache,
+    checkpoint_open, static_arrays with stage1_colsum and nxe_stats,
+    host_cache_init, m_matrix), precompute and assemble, per block
+    `block` (prefetch_wait, h2d, block_stats), on the prefetch thread
+    host_read and clean, per sample `sample` (loo_sub, assemble_Tq with
+    gram, project_cov and dotvec), and sync and results where a pass waits
+    for the device.
+    """
+
     def __init__(self, data: DataBundle, spec: ModelSpec, cfg: RunConfig,
                  log: Logger | None = None):
+        t0 = time.perf_counter()
+        # Per-estimate counters, summed over both passes (docs in
+        # Engine.phase_times below)
+        self.phase_times: dict[str, float] = {}
+        with span("engine_init"):
+            self._setup(data, spec, cfg, log)
+        self._phase_add("engine_init_s", time.perf_counter() - t0)
+
+    def _setup(self, data: DataBundle, spec: ModelSpec, cfg: RunConfig,
+               log: Logger | None):
         self.mm_mode = resolve_mm_mode(cfg)
         GenoImputeMethod(cfg.geno_impute_method)  # raises on unknown value
         self.data = data
@@ -295,6 +344,7 @@ class Engine:
         self.log = log or Logger(debug_mode=False)
 
         self.dev = pick_device(cfg.device)
+        self._timer = DeviceTimer(self.dev)
         # f32 products in full f32 (matters for the plain versions and
         # any torch product on the card)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -319,21 +369,19 @@ class Engine:
         self.use_cov = data.cov is not None
         self.b2 = self.B * (2 if self.use_cov else 1)
         self.n_pad = pad_to(data.bed.num_indiv, TN)
-        self.cache_limit = self._plan_cache()
+        with span("plan_cache"):
+            self.cache_limit = self._plan_cache()
         self._ckpt = self._open_checkpoint()
-        self._build_static_arrays()
+        with span("static_arrays"):
+            self._build_static_arrays()
         self._cache: dict[int, tuple] = {}
-        self._host_cache = self._init_host_cache()
+        self._block_span = None         # _blocks' open pyrhe.block span
+        with span("host_cache_init"):
+            self._host_cache = self._init_host_cache()
         self._tot = None
-        self.M_mat = self._build_M_matrix()
+        with span("m_matrix"):
+            self.M_mat = self._build_M_matrix()
         self.trace_sums = None
-        # Cumulative per-phase seconds: host_read_s runs on the prefetch
-        # thread overlapped with device work; h2d_s is device time of the
-        # copies (CUDA events); pass1_s / pass2_s are wall time of each
-        # pass, ending in a device synchronize; host_cache_hits counts the
-        # blocks served from the host cache.
-        self.phase_times: dict[str, float] = {}
-        self._h2d_events: list = []
 
     def _phase_add(self, name: str, dt: float):
         self.phase_times[name] = self.phase_times.get(name, 0.0) + dt
@@ -399,8 +447,10 @@ class Engine:
         rank, size = world()
         lock = ".lock" if size == 1 else f".lock.r{rank}"
         try:
-            return Checkpoint(self.cfg.checkpoint_dir, self._fingerprint(),
-                              self.log, lock_name=lock)
+            with span("checkpoint_open"):
+                return Checkpoint(self.cfg.checkpoint_dir,
+                                  self._fingerprint(), self.log,
+                                  lock_name=lock)
         except CheckpointBusy as e:
             # sharing a live run's directory would interleave commits and
             # could reset its state; run un-checkpointed instead
@@ -509,11 +559,13 @@ class Engine:
         if self.spec.model == "genie":
             mask[self.K:] = True
         self.stoch_mask = torch.as_tensor(mask, device=self.dev)
-        self.csum = stage1_colsum(self.spec.components, st.P, st.env,
-                                  st.valid_mask)
+        with span("stage1_colsum"):
+            self.csum = stage1_colsum(self.spec.components, st.P, st.env,
+                                      st.valid_mask)
         if self.num_nxe:
-            self.nxe = nxe_stats(st.env, st.Z, st.Uzb, st.Y, self.b2,
-                                 self.B)
+            with span("nxe_stats"):
+                self.nxe = nxe_stats(st.env, st.Z, st.Uzb, st.Y, self.b2,
+                                     self.B)
 
     def _block_range(self, j: int):
         """Contiguous SNP blocks; last absorbs remainder (reference base.py:362-379)."""
@@ -546,6 +598,7 @@ class Engine:
             self._phase_add("host_cache_hits", 1.0)
             return (*cache[j], 0.0)
         words, annot, dt = self._load_block_uncached(j)
+        self._phase_add("blocks_read", 1.0)
         if cache is not None:
             cache[j] = (words, annot)
         return words, annot, dt
@@ -561,53 +614,71 @@ class Engine:
         s, e = self._block_range(j)
         m = e - s
         bed = self.data.bed
-        packed = bed.read_packed_block(s, e)
-        if self.cfg.geno_impute_method == "binary":
-            sums, nmiss = bed.packed_col_stats(packed)
-            fill = imputation_fills(sums, nmiss, self.data.num_indv,
-                                    self.cfg.seed)
-        else:
-            fill = np.zeros(m)
-        m_pad = pad_to(m, ROW_TILE)
-        pin = self.dev.type == "cuda"
-        out = torch.empty((m_pad, self.n_pad // 4), dtype=torch.uint8,
-                          pin_memory=pin)
-        out_np = out.numpy()
-        clean_packed(packed, fill, out=out_np)
-        out_np[m:] = 0
-        annot = torch.zeros((m_pad, self.K), dtype=self.dtype,
-                            pin_memory=pin)
-        annot[:m] = torch.from_numpy(self.data.annot[s:e]).to(self.dtype)
+        with span("host_read"):
+            packed = bed.read_packed_block(s, e)
+            if self.cfg.geno_impute_method == "binary":
+                sums, nmiss = bed.packed_col_stats(packed)
+        with span("clean"):
+            if self.cfg.geno_impute_method == "binary":
+                fill = imputation_fills(sums, nmiss, self.data.num_indv,
+                                        self.cfg.seed)
+            else:
+                fill = np.zeros(m)
+            m_pad = pad_to(m, ROW_TILE)
+            pin = self.dev.type == "cuda"
+            out = torch.empty((m_pad, self.n_pad // 4), dtype=torch.uint8,
+                              pin_memory=pin)
+            out_np = out.numpy()
+            clean_packed(packed, fill, out=out_np)
+            out_np[m:] = 0
+            annot = torch.zeros((m_pad, self.K), dtype=self.dtype,
+                                pin_memory=pin)
+            annot[:m] = torch.from_numpy(self.data.annot[s:e]).to(self.dtype)
         return out.view(torch.int32), annot, time.perf_counter() - t0
 
     def _to_device(self, words, annot):
-        """Non-blocking copies from pinned memory, timed by CUDA events."""
+        """Non-blocking copies from pinned memory, timed by CUDA events
+        into h2d_s."""
         if self.dev.type == "cpu":
             return words, annot
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        words = words.to(self.dev, non_blocking=True)
-        annot = annot.to(self.dev, non_blocking=True)
-        ev[1].record()
-        self._h2d_events.append(ev)
+        with self._timer.span("h2d", "h2d_s", always=True):
+            words = words.to(self.dev, non_blocking=True)
+            annot = annot.to(self.dev, non_blocking=True)
         return words, annot
 
     def _blocks(self, indices):
         """Yield (words, annot) on the device for each block index, with
         the host read + clean running one block ahead on a background
-        thread (the role of the reference's worker pool, base.py)."""
+        thread (the role of the reference's worker pool, base.py). Each
+        block opens a `pyrhe.block` span that holds the consumer's work on
+        it: the span ends when the consumer calls _end_block() or asks for
+        the next block."""
         indices = list(indices)
         if not indices:
             return
         with ThreadPoolExecutor(max_workers=1) as ex:
             nxt = ex.submit(self._load_block, indices[0])
             for pos in range(len(indices)):
-                words, annot, dt = nxt.result()
-                if pos + 1 < len(indices):
-                    nxt = ex.submit(self._load_block, indices[pos + 1])
-                self._phase_add("host_read_s", dt)
-                yield self._to_device(words, annot)
+                self._block_span = span("block")
+                self._block_span.__enter__()
+                try:
+                    with span("prefetch_wait"):
+                        t0 = time.perf_counter()
+                        words, annot, dt = nxt.result()
+                        self._phase_add("prefetch_wait_s",
+                                        time.perf_counter() - t0)
+                    if pos + 1 < len(indices):
+                        nxt = ex.submit(self._load_block, indices[pos + 1])
+                    self._phase_add("host_read_s", dt)
+                    yield self._to_device(words, annot)
+                finally:
+                    self._end_block()
+
+    def _end_block(self):
+        """End the open `pyrhe.block` span, if any."""
+        ctx, self._block_span = self._block_span, None
+        if ctx is not None:
+            ctx.__exit__(None, None, None)
 
     def _stat_kw(self) -> dict:
         return dict(n_indiv=self.data.num_indv, b2=self.b2,
@@ -618,11 +689,12 @@ class Engine:
         working dtype."""
         st = self.static
         args = (words, annot, st.P, st.env, st.valid_mask)
-        if self.mode == "exact":
-            XXP, yXXy, _ = block_stats_core(*args, **self._stat_kw())
-        else:
-            XXP, yXXy, _ = block_stats_pallas_core(*args, mode=self.mode,
-                                                   **self._stat_kw())
+        with self._timer.span("block_stats", "block_stats_s"):
+            if self.mode == "exact":
+                XXP, yXXy, _ = block_stats_core(*args, **self._stat_kw())
+            else:
+                XXP, yXXy, _ = block_stats_pallas_core(
+                    *args, mode=self.mode, **self._stat_kw())
         return XXP.transpose(1, 2), yXXy
 
     def _sync(self):
@@ -630,11 +702,15 @@ class Engine:
             torch.cuda.synchronize(self.dev)
 
     def _end_pass(self, name: str, t0: float):
-        self._sync()
+        """Wait for the pass's device work, then add its wall to
+        phase_times[name] and its device timers to theirs (h2d_s always)."""
+        with span("sync"):
+            self._sync()
         self._phase_add(name, time.perf_counter() - t0)
-        self._phase_add("h2d_s", sum(a.elapsed_time(b)
-                                     for a, b in self._h2d_events) / 1e3)
-        self._h2d_events = []
+        times = self._timer.resolve()
+        self._phase_add("h2d_s", times.pop("h2d_s", 0.0))
+        for key, dt in times.items():
+            self._phase_add(key, dt)
 
     def precompute(self):
         """Pass 1: accumulate the totals in block order; the stats of the
@@ -645,8 +721,9 @@ class Engine:
         do not take (reference engine._acc_fast_path). Bitwise the same
         totals either way. Resumes from the checkpoint when it holds one."""
         t0 = time.perf_counter()
-        self._tot = self._pass1(self._ckpt, 0, self.J, self.cache_limit)
-        self._end_pass("pass1_s", t0)
+        with span("precompute"):
+            self._tot = self._pass1(self._ckpt, 0, self.J, self.cache_limit)
+            self._end_pass("pass1_s", t0)
 
     def _pass1(self, ck, lo: int, hi: int, cache_until: int):
         """Totals (tot_X (E_geno, b2, n_pad), tot_y (E_geno, T)) over the
@@ -690,7 +767,10 @@ class Engine:
                 tot_y.add_(yXXy)
         else:
             acc_scan_stats(rest, st.P, st.env, st.valid_mask, tot_X, tot_y,
-                           K=self.K, mode=self.mode, **self._stat_kw())
+                           K=self.K, mode=self.mode,
+                           timed=lambda: self._timer.span("block_stats",
+                                                          "block_stats_s"),
+                           **self._stat_kw())
         if ck is not None:
             ck.save_totals(tot_X, tot_y, hi)
             ck.commit("assemble", lo)
@@ -745,27 +825,39 @@ class Engine:
         j = start
         while j < hi:
             if j in self._cache:
-                yield self._cache.pop(j)
+                with span("block"):
+                    stats = self._cache.pop(j)
+                yield stats
                 j += 1
                 continue
             stop = min((k for k in self._cache if k > j), default=hi)
             for words, annot in self._blocks(range(j, stop)):
-                yield self._block_stats(words, annot)
+                stats = self._block_stats(words, annot)
+                self._end_block()           # the sample is no block work
+                yield stats
             j = stop
 
-    def _assemble_one(self, X, y, j):
-        """(T, q) of sample j from its (E_geno, b2, N) stats, with the NxE
-        rows appended (reference engine._loo_stats)."""
+    def _assemble_one(self, X, y, j, drop=None):
+        """(T, q) of sample j from the (E_geno, b2, N) stats X, y less the
+        block stats drop = (bX, by) when given, with the NxE rows appended
+        (reference engine._loo_stats); one `pyrhe.sample` span, timed into
+        assemble_s."""
         st = self.static
-        if self.num_nxe:
-            X = torch.cat([X, self.nxe[0]])
-            y = torch.cat([y, self.nxe[1]])
-        return assemble_Tq_core(
-            X.transpose(1, 2), y, torch.as_tensor(self.M_mat[j],
-                                                  device=self.dev),
-            st.Z, st.Uzb, st.C, st.Q, st.q_last, self.stoch_mask,
-            num_random_vec=self.B, n_indiv=self.data.num_indv,
-            n_cov=self.data.cov.shape[1] if self.use_cov else 0)
+        with self._timer.span("sample", "assemble_s"):
+            with span("loo_sub"):
+                if drop is not None:
+                    X = X - drop[0]
+                    y = y - drop[1]
+                if self.num_nxe:
+                    X = torch.cat([X, self.nxe[0]])
+                    y = torch.cat([y, self.nxe[1]])
+            with span("assemble_Tq"):
+                return assemble_Tq_core(
+                    X.transpose(1, 2), y,
+                    torch.as_tensor(self.M_mat[j], device=self.dev),
+                    st.Z, st.Uzb, st.C, st.Q, st.q_last, self.stoch_mask,
+                    num_random_vec=self.B, n_indiv=self.data.num_indv,
+                    n_cov=self.data.cov.shape[1] if self.use_cov else 0)
 
     def _pass2(self, ck, tot_X, tot_y, lo: int, hi: int):
         """Lists of the (T, q) of the leave-one-out samples [lo, hi), in
@@ -774,8 +866,8 @@ class Engine:
         ("assemble", j) committed, in every cache mode."""
         Ts, qs, start = self._resume_pass2(ck, lo)
         every = max(1, self.cfg.checkpoint_every)
-        for j, (bX, by) in enumerate(self._loo_blocks(start, hi), start):
-            T, q = self._assemble_one(tot_X - bX, tot_y - by, j)
+        for j, drop in enumerate(self._loo_blocks(start, hi), start):
+            T, q = self._assemble_one(tot_X, tot_y, j, drop)
             Ts.append(T)
             qs.append(q)
             if ck is not None and (j + 1 - start) % every == 0:
@@ -806,11 +898,15 @@ class Engine:
         committed."""
         t0 = time.perf_counter()
         tot_X, tot_y = self._tot
-        Ts, qs = self._pass2(self._ckpt, tot_X, tot_y, 0, self.J)
-        T, q = self._assemble_one(tot_X, tot_y, self.J)
-        self.T_all = torch.stack(Ts + [T]).cpu().numpy().astype(np.float64)
-        self.q_all = torch.stack(qs + [q]).cpu().numpy().astype(np.float64)
-        self._end_pass("pass2_s", t0)
+        with span("assemble"):
+            Ts, qs = self._pass2(self._ckpt, tot_X, tot_y, 0, self.J)
+            T, q = self._assemble_one(tot_X, tot_y, self.J)
+            with span("results"):
+                self.T_all = torch.stack(Ts + [T]).cpu().numpy().astype(
+                    np.float64)
+                self.q_all = torch.stack(qs + [q]).cpu().numpy().astype(
+                    np.float64)
+            self._end_pass("pass2_s", t0)
         if self._ckpt is not None:
             self._ckpt.save_results(self.T_all, self.q_all)
             self._ckpt.commit("done", self.J)

@@ -28,27 +28,35 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.trace import span
+
 
 def _gram(A, B):
     """(E, N, B), (F, N, B) -> (E, F) pairwise inner products via
-    multiply+reduce, one row of A at a time."""
-    return torch.stack([torch.sum(a[None, :, :] * B, dim=(1, 2)) for a in A])
+    multiply+reduce, one row of A at a time (a `pyrhe.gram` span)."""
+    with span("gram"):
+        return torch.stack([torch.sum(a[None, :, :] * B, dim=(1, 2))
+                            for a in A])
 
 
 def _dotvec(A, V):
-    """(E, N, B), (N, B) -> (E,) accurate inner products."""
-    return torch.sum(A * V[None, :, :], dim=(1, 2))
+    """(E, N, B), (N, B) -> (E,) accurate inner products (a
+    `pyrhe.dotvec` span)."""
+    with span("dotvec"):
+        return torch.sum(A * V[None, :, :], dim=(1, 2))
 
 
 def project_cov(C, Q, XXz):
-    """C Q C^T applied to each (N, B) slice of XXz (E, N, B).
+    """C Q C^T applied to each (N, B) slice of XXz (E, N, B) (a
+    `pyrhe.project_cov` span).
 
     The length-N contraction uses multiply+reduce (see _gram); the tiny
     length-ncov contractions use einsum."""
-    t = torch.stack([torch.sum(C[:, :, None] * x[:, None, :], dim=0)
-                     for x in XXz])                   # (E, ncov, B)
-    t = torch.einsum("cd,edb->ecb", Q, t)
-    return torch.einsum("nc,ecb->enb", C, t)
+    with span("project_cov"):
+        t = torch.stack([torch.sum(C[:, :, None] * x[:, None, :], dim=0)
+                         for x in XXz])               # (E, ncov, B)
+        t = torch.einsum("cd,edb->ecb", Q, t)
+        return torch.einsum("nc,ecb->enb", C, t)
 
 
 def assemble_Tq_core(

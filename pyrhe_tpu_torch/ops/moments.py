@@ -45,6 +45,7 @@ with the standard path cannot drift.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -395,20 +396,23 @@ def block_stats_pallas_acc_core(
 
 
 def acc_scan_stats(blocks, P, env, mask, totX, toty, *, K, components,
-                   **acc_kw):
+                   timed=None, **acc_kw):
     """Accumulate every (words, annot) block of `blocks` into the totals
     through the aliased stage-2 kernel. totX is (n_comp*K, b2, N), the
     kernels' layout, and is updated in place through per-component
     (K*b2, N) views; toty is updated in place too, before the next block
-    is asked for (a checkpoint reads both then); returns (totX, toty)."""
+    is asked for (a checkpoint reads both then); returns (totX, toty).
+    Each block's work runs inside timed(), a context per block (the
+    engine's `pyrhe.block_stats` span and device timer), when given."""
     b2 = acc_kw["b2"]
     tots = [totX[c * K:(c + 1) * K].view(K * b2, -1)
             for c in range(len(components))]
     for words, annot in blocks:
-        _, yXXy = block_stats_pallas_acc_core(
-            words, annot, P, env, mask, tots, components=components,
-            **acc_kw)
-        toty.add_(yXXy)
+        with timed() if timed is not None else contextlib.nullcontext():
+            _, yXXy = block_stats_pallas_acc_core(
+                words, annot, P, env, mask, tots, components=components,
+                **acc_kw)
+            toty.add_(yXXy)
     return totX, toty
 
 

@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from ..core.checkpoint import Checkpoint, CheckpointBusy
 from ..core.engine import stored_results
+from ..utils.trace import span
 from . import distributed
 
 
@@ -174,14 +175,18 @@ class ShardedRunner:
             return res
         keep = self._cache_keep()
         t0 = time.perf_counter()
-        tot = eng._pass1(ck, self.lo, self.hi, self.lo + keep)
-        tot_X, tot_y = eng._tot = self._merge(tot)
-        eng._end_pass("pass1_s", t0)
+        with span("precompute"):
+            tot = eng._pass1(ck, self.lo, self.hi, self.lo + keep)
+            tot_X, tot_y = eng._tot = self._merge(tot)
+            eng._end_pass("pass1_s", t0)
         t0 = time.perf_counter()
-        Ts, qs = eng._pass2(ck, tot_X, tot_y, self.lo, self.hi)
-        T_full, q_full = eng._assemble_one(tot_X, tot_y, eng.J)
-        T_all, q_all = self._gather(Ts, T_full), self._gather(qs, q_full)
-        eng._end_pass("pass2_s", t0)
+        with span("assemble"):
+            Ts, qs = eng._pass2(ck, tot_X, tot_y, self.lo, self.hi)
+            T_full, q_full = eng._assemble_one(tot_X, tot_y, eng.J)
+            with span("results"):
+                T_all = self._gather(Ts, T_full)
+                q_all = self._gather(qs, q_full)
+            eng._end_pass("pass2_s", t0)
         if ck is not None:
             ck.save_results(T_all, q_all)
             ck.commit("done", self.hi)
