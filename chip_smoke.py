@@ -19,7 +19,13 @@ non-zero without printing a result:
    must equal ytg plus the tensor transform bitwise, ytg_acc2 two ytg
    calls (g, g²) plus the transform; gp, ytg and ytg² must repeat bitwise,
    and their error against a float64 product is printed beside the plain
-   f32 product's.
+   f32 product's. Pass 2's sample_contract at a jackknife sample of
+   each benchmark cell (GENIE E = 26, B = 10; RHE E = 8, B = 50; f32):
+   its median time, its plain version's, the multiply+reduce it replaced,
+   float64 GEMMs of the same sums, its bound (bytes read once) and its
+   error against float64 sums, which must be within 1e-5 of the terms'
+   magnitudes, and a float64 launch's within 1e-13, from
+   pyrhe_tpu_torch.bench.kernels.measure_sample_contract.
    Median times of the kernel, its plain version and the library
    yardstick (torch.matmul on the tile decoded beforehand, f32 operands,
    TF32 off: the product alone for ytg_acc, both products for ytg_acc2),
@@ -51,10 +57,12 @@ non-zero without printing a result:
    (host_cache_gb -1, auto), cached == streaming bitwise, every sigma^2,
    SE and h2 finite, total h2 within 3 SE of the simulated truth (the
    cohort has no dominance, GxE or NxE effect: GENIE's total h2_gxe
-   within 3 SE of 0), every kernel of the path launched, the CLI's
-   sigma^2 equal to the streaming model's;
-5. the other modes on that cohort: RHE in float64 (mm_mode exact, no
-   kernel launch) and bf16 (the kernels with unsplit bf16 operands),
+   within 3 SE of 0), every kernel of the path launched, pass 2's
+   sample_contract once a jackknife sample (2 (J + 1) in the two runs),
+   the CLI's sigma^2 equal to the streaming model's;
+5. the other modes on that cohort: RHE in float64 (mm_mode exact: no
+   block-stats kernel, pass 2's sample_contract once a sample) and bf16
+   (the kernels with unsplit bf16 operands),
    cached and streaming, and RHE-DOM in bf16, cached and streaming, with
    the launch counts set to 0 before the bf16 runs and read after them
    (every kernel launched); cached == streaming bitwise in each; sigma^2
@@ -126,7 +134,7 @@ non-zero without printing a result:
    reference implementation's output (example/outputs/reference; GENIE
    streaming against its cached run, as the reference's StreamingGENIE
    deadlocks), each streaming report equal to its no_streaming twin's on
-   every printed estimate and SE, all six kernels launched; then the
+   every printed estimate and SE, all seven kernels launched; then the
    two-trait test.pheno.multi through rhe/no_streaming_bin_1 on the card
    and on the CPU: two traits each, sigma^2 and h2 on the card within the
    split2 envelope (3e-4) of the CPU's. Prints each run's wall time and
@@ -176,6 +184,9 @@ REPLACES = {
     "ytg_matmul_square": "pyrhe_tpu/ops/kernels.py:524",
     "ytg_acc_matmul": "pyrhe_tpu/ops/kernels.py:407",
     "ytg_acc2_matmul": "pyrhe_tpu/ops/kernels.py:346",
+    "sample_contract": "no TPU kernel: the XLA multiply+reduce of "
+                       "pyrhe_tpu/core/normal_eq.py (_gram, project_cov, "
+                       "_dotvec)",
 }
 
 
@@ -212,6 +223,7 @@ def phase_kernels():
     # the timer, bounds and shapes of python -m pyrhe_tpu_torch.bench.kernels
     from pyrhe_tpu_torch.bench.kernels import (M_PAD, N_PAD, QR, W,
                                                max_abs_err, measure,
+                                               measure_sample_contract,
                                                random_words)
     from pyrhe_tpu_torch.bench.timing import bound, median_ms, nbytes
     from pyrhe_tpu_torch.ops import kernels as K
@@ -455,6 +467,24 @@ def phase_kernels():
             f"{row['ms_q3']:.4f}), plain {row['plain_ms']:.4f} ms, library "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.1f} "
             f"us ({row['bound_by']}, {row['bound_pct']:.2f} % of it)")
+    # pass 2's kernel at a sample of each benchmark cell (keys of the GENIE
+    # sample, rhe_* keys of the RHE k = 50 one)
+    res["sample_contract"] = {}
+    for row in measure_sample_contract(dev):
+        pre = "" if row["cell"] == "genie.cached" else "rhe_"
+        res["sample_contract"].update(
+            {pre + k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "gemm_f64_ms", "bound_ms", "bound_by",
+                                       "max_rel_err", "max_rel_err_f64")},
+            **{pre + "bound_share": row["bound_pct"] / 100})
+        log(f"[3 kernels] sample_contract {row['cell']} {row['shape']}: "
+            f"kernel {row['ms']:.4f} ms (quartiles {row['ms_q1']:.4f}-"
+            f"{row['ms_q3']:.4f}), plain {row['plain_ms']:.4f} ms, "
+            f"replaced multiply+reduce {row['library_ms']:.4f} ms, f64 "
+            f"GEMMs {row['gemm_f64_ms']:.4f} ms, bound "
+            f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_pct']:.2f} % of "
+            f"it), max err {row['max_rel_err']:.2e} (f32), "
+            f"{row['max_rel_err_f64']:.2e} (f64) of the terms' magnitudes")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return res
@@ -521,6 +551,11 @@ def _drive_path(prefix, label, model, cls_c, cls_s, kernels, kw, checks):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched by the {label} "
                                  "path")
+    if launches["sample_contract"] != 2 * (cohort.JACK + 1):
+        raise AssertionError(f"{label}: sample_contract launched "
+                             f"{launches['sample_contract']} times in the "
+                             f"two runs, not once a sample, "
+                             f"{2 * (cohort.JACK + 1)}")
     if pt_s.get("host_cache_hits") != cohort.JACK:
         raise AssertionError(f"{label}: streaming pass 2 took "
                              f"{pt_s.get('host_cache_hits')} blocks from the "
@@ -587,10 +622,11 @@ def phase_main(d):
     results = {}
     # (label, --model, cached class, streaming class, kernels it launches,
     #  extra model arguments, heritability checks)
-    for path in (("RHE", "rhe", RHE, StreamingRHE, additive, {}, total_h2),
+    pass2 = additive + ("sample_contract",)
+    for path in (("RHE", "rhe", RHE, StreamingRHE, pass2, {}, total_h2),
                  ("RHE-DOM", "rhe_dom", RHE_DOM, StreamingRHE_DOM,
                   K.KERNELS, {}, total_h2),
-                 ("GENIE", "genie", GENIE, StreamingGENIE, additive,
+                 ("GENIE", "genie", GENIE, StreamingGENIE, pass2,
                   cohort.genie_kw(prefix), genie_h2)):
         launches, results[path[0]] = _drive_path(prefix, *path)
         for name, n in launches.items():
@@ -641,7 +677,8 @@ def _h2d_ms(nbytes, pin):
 
 def phase_modes(prefix, phase4):
     """5. The other working dtypes and the caches on the phase-4 cohort:
-    RHE in float64 (mm_mode exact: no kernel launch) and bf16 (the kernels
+    RHE in float64 (mm_mode exact: no block-stats kernel launch, pass 2's
+    sample_contract once a sample) and bf16 (the kernels
     with unsplit bf16 operands), cached and streaming, bitwise equal and
     inside their envelopes of the float64 run; RHE-DOM bf16 cached and
     streaming (ytg_acc2 with unsplit bf16 operands); RHE-DOM with
@@ -650,7 +687,8 @@ def phase_modes(prefix, phase4):
     one staged block. Returns the bf16 path's launch counts and {"f64
     streaming" | "dom hybrid": (T_all, q_all, sigma, h2)}."""
     import torch
-    from pyrhe_tpu_torch import RHE, RHE_DOM, StreamingRHE, StreamingRHE_DOM
+    from pyrhe_tpu_torch import (RHE, RHE_DOM, StreamingRHE,
+                                 StreamingRHE_DOM, cohort)
     from pyrhe_tpu_torch.ops import kernels as K
     tag = "[5 modes]"
 
@@ -668,7 +706,9 @@ def phase_modes(prefix, phase4):
     K.reset_launch_counts()
     f64 = {s: run(cls, dtype="float64")[0]
            for s, cls in ((False, RHE), (True, StreamingRHE))}
-    if any(K.launches.values()):
+    want = dict.fromkeys(K.KERNELS, 0)
+    want["sample_contract"] = 2 * (cohort.JACK + 1)     # pass 2, float64
+    if K.launches != want:
         raise AssertionError(f"float64 launched kernels: {K.launches}")
     _assert_same("RHE float64 streaming vs cached", f64[True], f64[False])
     K.reset_launch_counts()
@@ -1649,9 +1689,12 @@ def phase_bench(prefix, phase4):
                                      "standard body")
     out = _bench("kernels")
     got = sorted((r["name"], r["layout"]) for r in out["kernels"])
-    if got != sorted((n, lay) for n in K.KERNELS
+    if got != sorted((n, lay) for n in K.KERNELS if n != "sample_contract"
                      for lay in ("split2", "bf16")):
         raise AssertionError(f"bench.kernels timed {got}")
+    cells = sorted(r["cell"] for r in out["sample_contract"])
+    if cells != ["genie.cached", "rhe_k50.streaming"]:
+        raise AssertionError(f"bench.kernels timed sample_contract at {cells}")
     repeats = 2
     cohort_args = ["--prefix", prefix, "--cov", prefix + ".cov", "-N",
                    str(cohort.N), "-M", str(cohort.M), "-k",
@@ -1745,7 +1788,7 @@ def phase_example(d):
     SE overlap of the reference implementation's output (GENIE streaming
     against its cached run: the reference's StreamingGENIE deadlocks), (c)
     each streaming report equal to its no_streaming twin on every printed
-    estimate and SE, (d) all six kernels launched; then (e) the two-trait
+    estimate and SE, (d) all seven kernels launched; then (e) the two-trait
     test.pheno.multi through rhe/no_streaming_bin_1 on the card and with
     --device cpu: two traits each, every sigma^2 and h2 on the card within
     the split2 envelope (3e-4) of the CPU's. Returns (launches, seconds)."""

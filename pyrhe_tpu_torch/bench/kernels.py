@@ -20,6 +20,19 @@ call must move, each input read once and each output written once, over
 sets it, the share of the bound, and the largest difference from the
 plain version. Prints ONE JSON line, with the card's name and power limit.
 
+Under `sample_contract`, pass 2's kernel at the jackknife samples of the
+benchmark's two cells (`genie.cached`: E = 24 + 2 NxE rows, B = 10;
+`rhe_k50.streaming`: E = 8, B = 50; 4 covariates, n_pad 100,352, f32, a
+left-out block): its median over 20 cold-L2 launches and quartiles, its
+plain version's, the library call's (the multiply+reduce it replaced:
+tot - drop, the NxE rows, three Grams, the covariate projection and the
+two border products, one row at a time), float64 GEMMs of the same sums
+on flattened operands formed beforehand (`gemm_f64_ms`, 20 cold-L2
+launches), the bound (the bytes read once over 3.35 TB/s) and the largest
+error against float64 sums of the same stats, over the sum of the terms'
+magnitudes, of the f32 launch and of a float64 launch at the same shapes
+(held within 1e-5 and 1e-13: the tool raises past them).
+
 The kernels need the card: on the CPU every wrapper runs its plain
 version, so the tool has no CPU mode and raises without a card.
 """
@@ -133,7 +146,8 @@ def variants(ops: dict, layout: str) -> dict:
 
 
 def measure(dev, reps: int = 20) -> list[dict]:
-    """One row per kernel variant and layout (module docstring)."""
+    """One row per kernel variant of the block stats and layout (module
+    docstring)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     ops = operands(dev)
     rows = []
@@ -157,6 +171,115 @@ def measure(dev, reps: int = 20) -> list[dict]:
     return rows
 
 
+# One jackknife sample of each benchmark cell: (E_geno, NxE rows, B, ncov)
+SAMPLE_SHAPES = {"genie.cached": (24, 2, 10, 4),
+                 "rhe_k50.streaming": (8, 0, 50, 4)}
+
+
+def replaced_contractions(tot, drop, nxe, Ct, Q, Zt, Ut, B):
+    """The multiply+reduce path sample_contract replaced (one sample's
+    leave-one-out stats, the NxE rows, the Grams G1, G2 and G3 one row at a
+    time over an (F, N, B) product, the projection C Q C^T XXz and the two
+    border products), on the same inputs: the library call of its row."""
+    X = torch.cat([tot - drop, nxe]) if nxe is not None else tot - drop
+    X = X.transpose(1, 2)                                   # (E, N, b2)
+    XXz, XXUz = X[:, :, :B], X[:, :, B:]
+    C, Z, U = Ct.T, Zt.T, Ut.T
+
+    def gram(A, Bm):
+        return torch.stack([torch.sum(a[None] * Bm, dim=(1, 2)) for a in A])
+
+    t = torch.stack([torch.sum(C[:, :, None] * x[:, None, :], dim=0)
+                     for x in XXz])
+    UXXz = torch.einsum("nc,ecb->enb", C, torch.einsum("cd,edb->ecb", Q, t))
+    return (gram(XXz, XXz), gram(UXXz, XXz), gram(XXUz, UXXz),
+            torch.sum(XXz * Z[None], dim=(1, 2)),
+            torch.sum(XXz * U[None], dim=(1, 2)))
+
+
+# test_cuda_sample_contract_matches_plain's limits on the error over the
+# sum of the terms' magnitudes: runs of at most 256 f32 terms; f64
+SC_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+
+
+def sample_contract_err(ops, B: int) -> float:
+    """The kernel's largest error on ops (tot, drop, nxe, Ct, Zt, Ut)
+    against float64 sums of the same stats (X = tot - drop rounded in their
+    dtype), over the sum of the terms' magnitudes; raises AssertionError
+    past SC_TOL of the stats' dtype."""
+    got = K.sample_contract(*ops, B=B)
+    tot, drop, nxe, Ct, Zt, Ut = ops
+    X = (tot - drop).double()
+    d = lambda t: None if t is None else t.double()
+    a = lambda t: None if t is None else t.double().abs()
+    want = K.sample_contract_plain(X, None, d(nxe), d(Ct), d(Zt), d(Ut), B)
+    mags = K.sample_contract_plain(X.abs(), None, a(nxe), a(Ct), a(Zt),
+                                   a(Ut), B)
+    err = max(((g - w).abs() / m).max().item()
+              for g, w, m in zip(got, want, mags))
+    if not err <= SC_TOL[tot.dtype]:
+        raise AssertionError(f"sample_contract {tot.dtype} {tuple(tot.shape)}"
+                             f": error {err:.3e} of the terms' magnitudes, "
+                             f"limit {SC_TOL[tot.dtype]:.0e}")
+    return err
+
+
+def gemm_f64(X, Ct, Zt, Ut, B: int):
+    """The kernel's sums as float64 library GEMMs on flattened operands
+    formed beforehand from X = cat(tot - drop, nxe) (E, b2, N): G1 over
+    (E, B·N), C^T X over (E·b2, N) (P and R), the borders as
+    matrix-vector products; the strictest library yardstick."""
+    E, b2, N = X.shape
+    Xz = X[:, :B].contiguous().view(E, B * N)
+    Xall, C64 = X.view(E * b2, N), Ct.double()
+    z64, u64 = Zt.double().view(B * N), Ut.double().view(B * N)
+    return lambda: (Xz @ Xz.T, Xall @ C64.T, Xz @ z64, Xz @ u64)
+
+
+def measure_sample_contract(dev, reps: int = 20) -> list[dict]:
+    """One row per cell of SAMPLE_SHAPES (module docstring); raises
+    AssertionError where the kernel's float32 or float64 launch is outside
+    SC_TOL."""
+    rows = []
+    for cell, (E_geno, num_nxe, B, ncov) in SAMPLE_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(E_geno + B)
+
+        def rand(*shape):
+            return torch.randn(*shape, device=dev, generator=gen)
+
+        ops = (rand(E_geno, 2 * B, N_PAD), rand(E_geno, 2 * B, N_PAD),
+               rand(num_nxe, 2 * B, N_PAD) if num_nxe else None,
+               rand(ncov, N_PAD), rand(B, N_PAD), rand(B, N_PAD))
+        Q = torch.linalg.pinv(ops[3] @ ops[3].T)
+        err = sample_contract_err(ops, B)
+        ops64 = tuple(None if t is None else t.double() for t in ops)
+        err64 = sample_contract_err(ops64, B)
+        X = ops[0] - ops[1]
+        X64 = (torch.cat([X, ops[2]]) if num_nxe else X).double()
+        del ops64, X
+        gemm = summary(event_ms(gemm_f64(X64, *ops[3:], B), reps))
+        del X64
+        s = summary(event_ms(lambda: K.sample_contract(*ops, B=B), reps))
+        nb = nbytes(*(t for t in ops if t is not None))
+        bound_ms, by = bound(nb, 0, torch.float32)
+        rows.append({
+            "name": "sample_contract", "cell": cell,
+            "shape": {"E": E_geno + num_nxe, "B": B, "ncov": ncov,
+                      "n_pad": N_PAD},
+            "ms": s["median"], "ms_q1": s["q1"], "ms_q3": s["q3"],
+            "samples": s["n"],
+            "plain_ms": median_ms(lambda: K.sample_contract_plain(
+                *ops, B), reps=5),
+            "library_ms": median_ms(lambda: replaced_contractions(
+                *ops[:4], Q, *ops[4:], B), reps=5),
+            "gemm_f64_ms": gemm["median"],
+            "bytes_read": nb, "bound_ms": bound_ms, "bound_by": by,
+            "bound_pct": 100 * bound_ms / s["median"],
+            "max_rel_err": err, "max_rel_err_f64": err64})
+        del ops
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="auto",
@@ -169,7 +292,8 @@ def main(argv=None):
     print(json.dumps({
         "tool": "kernels", "device": card(dev),
         "shape": {"m_pad": M_PAD, "n_pad": N_PAD, "W": W, "Q": QR // 2},
-        "kernels": measure(dev)}))
+        "kernels": measure(dev),
+        "sample_contract": measure_sample_contract(dev)}))
 
 
 if __name__ == "__main__":

@@ -197,6 +197,8 @@ class StaticArrays:
     """The engine's device-resident per-run arrays, N-indexed ones padded
     to n_pad and plane-permuted (ops/kernels.py contract)."""
     P: torch.Tensor              # (n_pad, Bp) [Z | Uzb? | y~ traits]
+    # Z, Uzb and C are transposed views of contiguous (k, n_pad) tensors:
+    # pass 2's kernel reads Z.T, Uzb.T and C.T along N
     Z: torch.Tensor              # (n_pad, B)
     Uzb: torch.Tensor            # (n_pad, B), zeros without covariates
     C: torch.Tensor | None       # (n_pad, ncov)
@@ -222,18 +224,21 @@ def static_arrays_from_numpy(Z, Uzb, cov, Q, Y_resid, keep_idx,
     n_pad = pad_to(num_indiv_bed, TN)
     perm = plane_permutation(n_pad)
 
-    def put(x):
+    def put(x, transposed=False):
         x = np.asarray(x, np.float64)
         out = np.zeros((n_pad,) + x.shape[1:])
         if keep_idx is None:
             out[:x.shape[0]] = x
         else:
             out[keep_idx] = x
+        if transposed:
+            return torch.as_tensor(np.ascontiguousarray(out[perm].T),
+                                   dtype=dtype, device=device).T
         return torch.as_tensor(out[perm], dtype=dtype, device=device)
 
     cols = [Z] + ([Uzb] if cov is not None else []) + (
         [Y_resid] if Y_resid.shape[1] else [])
-    Zd = put(Z)
+    Zd = put(Z, transposed=True)
     keep = np.zeros(n_pad, dtype=bool)
     if keep_idx is None:
         keep[:Z.shape[0]] = True
@@ -241,8 +246,8 @@ def static_arrays_from_numpy(Z, Uzb, cov, Q, Y_resid, keep_idx,
         keep[keep_idx] = True
     return StaticArrays(
         P=put(np.concatenate(cols, axis=1)), Z=Zd,
-        Uzb=put(Uzb) if cov is not None else torch.zeros_like(Zd),
-        C=put(cov) if cov is not None else None,
+        Uzb=put(Uzb, True) if cov is not None else torch.zeros_like(Zd),
+        C=put(cov, True) if cov is not None else None,
         Q=(torch.as_tensor(Q, dtype=dtype, device=device)
            if cov is not None else None),
         valid_mask=torch.as_tensor(keep[perm], dtype=dtype, device=device),
@@ -303,8 +308,8 @@ class Engine:
                        as `pyrhe.block_stats` opens to the one as it
                        closes; recorded while tracing is on
       assemble_s       the same over each `pyrhe.sample` (the leave-one-out
-                       subtraction, the Gram products, the covariate
-                       projection, the dot products), J + 1 samples;
+                       subtraction, the sample's contractions, the
+                       covariate-space Grams, T and q), J + 1 samples;
                        recorded while tracing is on
       host_cache_hits  blocks served from the host block cache (a count)
       blocks_read      blocks read from the .bed (a count)
@@ -320,8 +325,8 @@ class Engine:
     host_cache_init, m_matrix), precompute and assemble, per block
     `block` (prefetch_wait, h2d, block_stats), on the prefetch thread
     host_read and clean, per sample `sample` (loo_sub, assemble_Tq with
-    gram, project_cov and dotvec), and sync and results where a pass waits
-    for the device.
+    sample_contract and, with covariates, cov_gram), and sync and results
+    where a pass waits for the device.
     """
 
     def __init__(self, data: DataBundle, spec: ModelSpec, cfg: RunConfig,
@@ -381,6 +386,7 @@ class Engine:
         self._tot = None
         with span("m_matrix"):
             self.M_mat = self._build_M_matrix()
+            self.M_dev = torch.as_tensor(self.M_mat, device=self.dev)
         self.trace_sums = None
 
     def _phase_add(self, name: str, dt: float):
@@ -841,22 +847,23 @@ class Engine:
         """(T, q) of sample j from the (E_geno, b2, N) stats X, y less the
         block stats drop = (bX, by) when given, with the NxE rows appended
         (reference engine._loo_stats); one `pyrhe.sample` span, timed into
-        assemble_s."""
+        assemble_s. The stats' subtraction and NxE rows are read inside
+        pass 2's kernel (assemble_Tq_core); `loo_sub` forms y's."""
         st = self.static
         with self._timer.span("sample", "assemble_s"):
             with span("loo_sub"):
                 if drop is not None:
-                    X = X - drop[0]
                     y = y - drop[1]
                 if self.num_nxe:
-                    X = torch.cat([X, self.nxe[0]])
                     y = torch.cat([y, self.nxe[1]])
             with span("assemble_Tq"):
                 return assemble_Tq_core(
-                    X.transpose(1, 2), y,
-                    torch.as_tensor(self.M_mat[j], device=self.dev),
-                    st.Z, st.Uzb, st.C, st.Q, st.q_last, self.stoch_mask,
-                    num_random_vec=self.B, n_indiv=self.data.num_indv,
+                    X, None if drop is None else drop[0],
+                    self.nxe[0] if self.num_nxe else None, y, self.M_dev[j],
+                    st.Z.T, st.Uzb.T if self.use_cov else None,
+                    None if st.C is None else st.C.T, st.Q, st.q_last,
+                    self.stoch_mask, num_random_vec=self.B,
+                    n_indiv=self.data.num_indv,
                     n_cov=self.data.cov.shape[1] if self.use_cov else 0)
 
     def _pass2(self, ck, tot_X, tot_y, lo: int, hi: int):

@@ -12,6 +12,10 @@
 //   rhe_ytg_acc2 <- ytg_acc2_matmul / _ytg_acc2_kernel
 //                   tot += mask * ((sum_halves(Yt1 @ g) + sum_halves(Yt2 @ g²))
 //                                  - rank1)
+// and adds, for pass 2 (core/normal_eq.py), a kernel with no TPU
+// counterpart:
+//   rhe_sample_contract  one jackknife sample's length-N contractions
+//                        (Gram, covariate projections, border products)
 // `square` selects g² = dosage² in {0, 1, 4} (RHE-DOM), the values of the
 // reference's _swar_plane(..., square=True).
 //
@@ -1127,6 +1131,390 @@ int acc_fma_launch(const void* words, const void* yt0, const void* yt1,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------ sample_contract
+// The length-N contractions of one jackknife sample's normal equations
+// (core/normal_eq.assemble_Tq_core), in one pass over the sample's stats.
+// Replaces no TPU kernel: the JAX package runs them as XLA multiply+reduce
+// (pyrhe_tpu/core/normal_eq.py _gram x3, project_cov, _dotvec x2, after
+// the leave-one-out subtraction and NxE concatenation of
+// assemble_Tq_chunk). The sample's stats X (E, b2, N), N contiguous, are
+// read where they lie: rows e < e_geno are tot[e] - drop[e] (tot[e] when
+// there is no drop; the difference rounded in T, as torch's tot - drop),
+// rows e_geno .. E-1 the NxE rows. With B probe columns (b2 = B, or 2B with
+// ncov > 0 covariates), C^T (ncov, N), Z^T and Uzb^T (B, N), it writes in
+// float64, into out = [G1 | P | R | zd | ud]:
+//   G1[e, f]   = sum_{b<B} sum_n X[e,b,n] X[f,b,n]         (E, E)
+//   P[e, k, b] = sum_n C[n,k] X[e,b,n]                     (E, ncov, B)
+//   R[e, k, b] = sum_n C[n,k] X[e,B+b,n]                   (E, ncov, B)
+//   zd[e]      = sum_b sum_n X[e,b,n] Z[n,b]               (E,)
+//   ud[e]      = sum_b sum_n X[e,b,n] Uzb[n,b]             (E,), ncov > 0
+//
+// Bound: bytes. The stats are read once (tot and drop: 418 MB a GENIE
+// sample at E = 26, b2 = 20, N = 100,352 f32; 642 MB at RHE k = 50), at
+// about one FMA a byte, far below the card's ~20 f32 FMAs a byte.
+//
+// Design: block (x, y, z) takes the SC_CHUNK individuals of chunk x at
+// probe column b = y, for tile group z. Per stage of `ncs` individuals it
+// stages in shared memory the rows it needs at that b: X[:, b] (E rows,
+// padded to 4), X[:, B + b] (with covariates) and [C^T | z_b | u_b], loaded
+// 16 bytes a thread along N, coalesced, tot - drop formed on the way. The
+// outputs are 4 x 4 tiles of (left row, right row) pairs: X x X (the upper
+// triangle of tiles: G1 is symmetric), X x [C | z | u] and
+// X_U x [C | z | u] (whose X_U x z / u entries nobody reads). A tile is
+// computed by `lanes` threads, each over its own quads of 4 individuals
+// (64 FMAs per 8 16-byte shared loads; a 4-element pad per row keeps the
+// rows on distinct banks), TPT tiles a thread; more than 32 * TPT tiles
+// take more tile groups, each reading the stats again. Products and sums
+// are in T, but a lane's run is at most SC_CHUNK / 8 = 256 terms: the block
+// then sums its lanes' partials in float64 in lane order into part[b, x].
+// sample_contract_merge sums part over the chunks (and over b for G1, zd
+// and ud) in float64, one warp an output: strided lanes in a fixed order,
+// then a fixed butterfly. No atomics: every launch is deterministic, and
+// the result depends on the shapes alone.
+constexpr int SC_THREADS = 256;
+constexpr int SC_CHUNK = 2048;    // individuals a block
+constexpr int SC_PAD = 4;         // elements after each staged row
+constexpr int SC_STAGE_BYTES = 48 << 10;   // staged rows aim at no more
+constexpr int SC_SMEM_MAX = 232448;        // a block's most (227 KB)
+
+struct ScShape {
+  int64_t n;             // individuals
+  int e, e_geno;         // rows of X; rows from tot (the rest NxE)
+  int b, b2, ncov;       // probe columns, stats columns, covariates
+  int na, nk;            // 4-row tiles of X rows, of [C | z | u] rows
+  int ntiles, tg, tpt;   // tiles in all, tiles a group, tiles a thread
+  int nchunks, ncs;      // blocks along N, individuals a stage
+  int smem;              // a block's dynamic shared memory, bytes
+  int vec;               // 1: 16-byte loads (N % 4 == 0, aligned bases)
+};
+
+// The partition of a launch, from the shapes alone: 4-row tiles of the E
+// stats rows (na) and of the [C^T | z | u] rows (nk); the tiles (the upper
+// triangle of X x X, X x [C | z | u] and, with covariates,
+// X_U x [C | z | u]); tiles a thread (tpt: 2 in f32 past 32 tiles, else
+// 1); tiles a group (tg: more tiles take more groups); blocks along N;
+// individuals a stage (ncs: the most of 512, 256, ..., 16 whose staged
+// rows and their source table fit SC_STAGE_BYTES, else 16); and smem, the
+// staged rows with their source table or the lanes' partials, whichever
+// is larger.
+ScShape sc_plan(int64_t n, int e, int e_geno, int b, int b2, int ncov,
+                bool f64) {
+  ScShape sh{};
+  sh.n = n;
+  sh.e = e;
+  sh.e_geno = e_geno;
+  sh.b = b;
+  sh.b2 = b2;
+  sh.ncov = ncov;
+  const int item = f64 ? 8 : 4;
+  sh.na = (e + 3) / 4;
+  sh.nk = (ncov + 1 + (ncov > 0 ? 1 : 0) + 3) / 4;
+  sh.ntiles = sh.na * (sh.na + 1) / 2 + sh.na * sh.nk * (ncov > 0 ? 2 : 1);
+  sh.tpt = !f64 && sh.ntiles > 32 ? 2 : 1;
+  sh.tg = sh.ntiles < 32 * sh.tpt ? sh.ntiles : 32 * sh.tpt;
+  sh.nchunks = (int)((n + SC_CHUNK - 1) / SC_CHUNK);
+  const int rows = 4 * sh.na * (ncov > 0 ? 2 : 1) + 4 * sh.nk;
+  auto staged = [&](int ncs) {   // a row: its elements and two pointers
+    return rows * ((ncs + SC_PAD) * item + 2 * (int)sizeof(void*));
+  };
+  sh.ncs = 512;
+  while (sh.ncs > 16 && staged(sh.ncs) > SC_STAGE_BYTES) sh.ncs /= 2;
+  const int partials = SC_THREADS * sh.tpt * 16 * item;
+  sh.smem = staged(sh.ncs) > partials ? staged(sh.ncs) : partials;
+  return sh;
+}
+
+__device__ __forceinline__ float sc_sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sc_sub(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float sc_fma(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double sc_fma(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// 4 consecutive elements from 16-byte-aligned global memory (read-only
+// path) or shared memory.
+__device__ __forceinline__ void sc_ldg(const float* p, float (&v)[4]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void sc_ldg(const double* p, double (&v)[4]) {
+  const double2 x = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 y = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = x.x; v[1] = x.y; v[2] = y.x; v[3] = y.y;
+}
+__device__ __forceinline__ void sc_lds(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void sc_lds(const double* p, double (&v)[4]) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  const double2 y = *(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = x.x; v[1] = x.y; v[2] = y.x; v[3] = y.y;
+}
+__device__ __forceinline__ void sc_sts(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void sc_sts(double* p, const double (&v)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// Individuals m .. m+3 of row a (less row d when given); zero past n.
+template <typename T>
+__device__ __forceinline__ void sc_load(const T* __restrict__ a,
+                                        const T* __restrict__ d, int64_t m,
+                                        int64_t n, bool vec, T (&v)[4]) {
+  if (vec && m + 4 <= n) {
+    sc_ldg(a + m, v);
+    if (d) {
+      T w[4];
+      sc_ldg(d + m, w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = sc_sub(v[k], w[k]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = m + k >= n ? T(0) : d ? sc_sub(a[m + k], d[m + k]) : a[m + k];
+  }
+}
+
+// Staged rows (left, right) of tile t: the upper triangle of X x X tiles
+// row by row, then X x [C | z | u], then X_U x [C | z | u].
+__device__ __forceinline__ void sc_tile_rows(int t, const ScShape& sh,
+                                             int ea, int ko, int& l,
+                                             int& r) {
+  const int naa = sh.na * (sh.na + 1) / 2;
+  if (t < naa) {
+    int i = 0;
+    while (t >= sh.na - i) {
+      t -= sh.na - i;
+      ++i;
+    }
+    l = 4 * i;
+    r = 4 * (i + t);
+    return;
+  }
+  t -= naa;
+  const int seg = t / (sh.na * sh.nk);
+  t -= seg * sh.na * sh.nk;
+  l = seg * ea + 4 * (t / sh.nk);
+  r = ko + 4 * (t % sh.nk);
+}
+
+template <typename T, int TPT>
+__global__ void __launch_bounds__(SC_THREADS, 2)
+sample_contract_kernel(const T* __restrict__ tot, const T* __restrict__ drop,
+                       const T* __restrict__ nxe, const T* __restrict__ ct,
+                       const T* __restrict__ zt, const T* __restrict__ ut,
+                       double* __restrict__ part, ScShape sh) {
+  extern __shared__ __align__(16) unsigned char sc_smem[];
+  const bool cov = sh.ncov > 0;
+  const int ea = 4 * sh.na, ko = cov ? 2 * ea : ea, rows = ko + 4 * sh.nk;
+  const int pitch = sh.ncs + SC_PAD;
+  T* stage = reinterpret_cast<T*>(sc_smem);
+  const T** src = reinterpret_cast<const T**>(
+      sc_smem + (size_t)rows * pitch * sizeof(T));
+  const int chunk = blockIdx.x, b = blockIdx.y;
+  const int64_t n0 = (int64_t)chunk * SC_CHUNK;
+  const int len = (int)min((int64_t)SC_CHUNK, sh.n - n0);
+
+  // Each staged row's source at this b and its subtrahend; pad rows have
+  // none and stay zero.
+  for (int r = threadIdx.x; r < rows; r += SC_THREADS) {
+    const T* a = nullptr;
+    const T* d = nullptr;
+    if (r < ko) {
+      const int e = r < ea ? r : r - ea;
+      const int col = r < ea ? b : sh.b + b;
+      if (e < sh.e_geno) {
+        const int64_t off = ((int64_t)e * sh.b2 + col) * sh.n;
+        a = tot + off;
+        d = drop ? drop + off : nullptr;
+      } else if (e < sh.e) {
+        a = nxe + ((int64_t)(e - sh.e_geno) * sh.b2 + col) * sh.n;
+      }
+    } else {
+      const int k = r - ko;
+      if (k < sh.ncov) a = ct + (int64_t)k * sh.n;
+      else if (k == sh.ncov) a = zt + (int64_t)b * sh.n;
+      else if (k == sh.ncov + 1 && cov) a = ut + (int64_t)b * sh.n;
+    }
+    src[2 * r] = a;
+    src[2 * r + 1] = d;
+  }
+  for (int i = threadIdx.x; i < rows * pitch; i += SC_THREADS)
+    stage[i] = T(0);
+
+  // This thread's tiles: tiles slot + s * nslots of the group, lane `lane`
+  // of each.
+  const int nslots = (sh.tg + TPT - 1) / TPT;
+  const int lanes = nslots <= 8 ? 32 : nslots <= 16 ? 16 : 8;
+  const int slot = threadIdx.x / lanes, lane = threadIdx.x % lanes;
+  const int t0 = blockIdx.z * sh.tg;
+  const int ntg = min(sh.tg, sh.ntiles - t0);
+  int lrow[TPT], rrow[TPT];
+  bool live[TPT];
+  T acc[TPT][16];
+#pragma unroll
+  for (int s = 0; s < TPT; ++s) {
+    const int tl = slot + s * nslots;
+    live[s] = slot < nslots && tl < ntg;
+    lrow[s] = rrow[s] = 0;
+    if (live[s]) sc_tile_rows(t0 + tl, sh, ea, ko, lrow[s], rrow[s]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[s][i] = T(0);
+  }
+
+  const int qps = sh.ncs / 4;          // quads (4 individuals) a staged row
+  const int items = rows * qps;
+  for (int s0 = 0; s0 < len; s0 += sh.ncs) {
+    __syncthreads();   // the sources and zeros, or the last stage's reads
+    const int64_t nb = n0 + s0;
+    // staged quads a thread keeps in flight: 8 in f32, 4 in f64 (8 spill)
+    constexpr int kUnroll = sizeof(T) == 4 ? 8 : 4;
+    for (int i0 = threadIdx.x; i0 < items; i0 += kUnroll * SC_THREADS) {
+      T v[kUnroll][4];
+      int dst[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * SC_THREADS;
+        const int r = i / qps, q = i - r * qps;
+        const T* a = i < items ? src[2 * r] : nullptr;
+        dst[u] = a ? r * pitch + 4 * q : -1;
+        if (a) sc_load(a, src[2 * r + 1], nb + 4 * q, sh.n, sh.vec != 0,
+                       v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (dst[u] >= 0) sc_sts(stage + dst[u], v[u]);
+    }
+    __syncthreads();
+    const int nq = (min(sh.ncs, len - s0) + 3) / 4;
+#pragma unroll
+    for (int s = 0; s < TPT; ++s) {
+      if (!live[s]) continue;
+      const T* L = stage + lrow[s] * pitch;
+      const T* R = stage + rrow[s] * pitch;
+      for (int q = lane; q < nq; q += lanes) {
+        T a[4][4], c[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc_lds(L + i * pitch + 4 * q, a[i]);
+          sc_lds(R + i * pitch + 4 * q, c[i]);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[s][i * 4 + j] = sc_fma(a[i][k], c[j][k], acc[s][i * 4 + j]);
+      }
+    }
+  }
+
+  // The lanes' partials of each tile entry, summed in float64 in lane
+  // order: red[(tile * 16 + entry) * lanes + lane] over the staged rows.
+  __syncthreads();
+  T* red = stage;
+#pragma unroll
+  for (int s = 0; s < TPT; ++s) {
+    if (!live[s]) continue;
+    const int tl = slot + s * nslots;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) red[(tl * 16 + i) * lanes + lane] = acc[s][i];
+  }
+  __syncthreads();
+  double* out = part + ((int64_t)b * sh.nchunks + chunk) * sh.ntiles * 16
+                + (int64_t)t0 * 16;
+  for (int o = threadIdx.x; o < ntg * 16; o += SC_THREADS) {
+    double sum = 0.0;
+    for (int l = 0; l < lanes; ++l) sum += (double)red[o * lanes + l];
+    out[o] = sum;
+  }
+}
+
+// out[w] for every output w of [G1 | P | R | zd | ud], one warp each: the
+// sum of part's (tile, entry) over its range of (b, chunk) blocks, lane l
+// taking blocks l, l + 32, ... in order, then a fixed butterfly. G1[e, f]
+// and G1[f, e] read the same tile entry (e <= f) and sum it alike.
+__global__ void __launch_bounds__(256)
+sample_contract_merge(const double* __restrict__ part,
+                      double* __restrict__ out, ScShape sh) {
+  const int64_t w = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int E = sh.e, B = sh.b, nc = sh.ncov;
+  const int64_t n_g1 = (int64_t)E * E, n_p = (int64_t)E * nc * B;
+  if (w >= n_g1 + 2 * n_p + (nc > 0 ? 2 : 1) * E) return;   // whole warps
+  const int naa = sh.na * (sh.na + 1) / 2;
+  int tile, ij;
+  int64_t blk0 = 0, nblk = (int64_t)B * sh.nchunks;
+  if (w < n_g1) {
+    int e = (int)(w / E), f = (int)(w % E);
+    if (e > f) {
+      const int t = e;
+      e = f;
+      f = t;
+    }
+    const int i = e / 4, j = f / 4;
+    tile = i * sh.na - i * (i - 1) / 2 + (j - i);
+    ij = (e % 4) * 4 + f % 4;
+  } else if (w < n_g1 + 2 * n_p) {
+    int64_t t = w - n_g1;
+    const int seg = t >= n_p;
+    t -= seg * n_p;
+    const int b = (int)(t % B), k = (int)((t / B) % nc);
+    const int e = (int)(t / ((int64_t)B * nc));
+    tile = naa + seg * sh.na * sh.nk + (e / 4) * sh.nk + k / 4;
+    ij = (e % 4) * 4 + k % 4;
+    blk0 = (int64_t)b * sh.nchunks;
+    nblk = sh.nchunks;
+  } else {
+    const int64_t t = w - n_g1 - 2 * n_p;
+    const int k = nc + (int)(t / E), e = (int)(t % E);
+    tile = naa + (e / 4) * sh.nk + k / 4;
+    ij = (e % 4) * 4 + k % 4;
+  }
+  const int64_t stride = (int64_t)sh.ntiles * 16;
+  const double* p = part + blk0 * stride + tile * 16 + ij;
+  double s = 0.0;
+  for (int64_t t = lane; t < nblk; t += 32) s += p[t * stride];
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) out[w] = s;
+}
+
+template <typename T, int TPT>
+int sc_launch(const void* tot, const void* drop, const void* nxe,
+              const void* ct, const void* zt, const void* ut, double* part,
+              double* out, const ScShape& sh, cudaStream_t st) {
+  auto* kern = sample_contract_kernel<T, TPT>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)sh.nchunks, (unsigned)sh.b,
+                  (unsigned)((sh.ntiles + sh.tg - 1) / sh.tg));
+  kern<<<grid, SC_THREADS, sh.smem, st>>>(
+      static_cast<const T*>(tot), static_cast<const T*>(drop),
+      static_cast<const T*>(nxe), static_cast<const T*>(ct),
+      static_cast<const T*>(zt), static_cast<const T*>(ut), part, sh);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return (int)e2;
+  const int64_t outs = (int64_t)sh.e * sh.e
+                       + 2 * (int64_t)sh.e * sh.ncov * sh.b
+                       + (sh.ncov > 0 ? 2 : 1) * (int64_t)sh.e;
+  sample_contract_merge<<<(unsigned)((outs * 32 + 255) / 256), 256, 0, st>>>(
+      part, out, sh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1186,6 +1574,45 @@ int rhe_ytg_acc2(const void* words, const void* yt1, const void* yt2,
                           nw, q, split, st)
       : acc_fma_launch<2>(words, yt1, yt2, rank1, nullptr, mask, tot, m_pad,
                           nw, q, split, st);
+}
+
+// sample_contract's partition at these shapes (sc_plan) into plan =
+// [na, nk, ntiles, tpt, tg, nchunks, ncs, smem]; the wrapper sizes its
+// workspace from it. Returns 0, or cudaErrorInvalidValue when a block
+// would need more than SC_SMEM_MAX bytes of shared memory.
+int rhe_sample_contract_plan(int64_t n, int e, int ncov, int f64,
+                             int* plan) {
+  const ScShape sh = sc_plan(n, e, e, 1, 1, ncov, f64 != 0);
+  const int v[8] = {sh.na, sh.nk, sh.ntiles, sh.tpt, sh.tg, sh.nchunks,
+                    sh.ncs, sh.smem};
+  for (int i = 0; i < 8; ++i) plan[i] = v[i];
+  return sh.smem > SC_SMEM_MAX ? (int)cudaErrorInvalidValue : 0;
+}
+
+// The pass-2 contractions of one jackknife sample (sample_contract_kernel):
+// tot (e_geno, b2, n), drop (the same, or null), nxe (e - e_geno, b2, n or
+// null), ct (ncov, n, or null), zt and ut (b, n; ut null without
+// covariates), all T = f64 ? double : float; part the f64 workspace of
+// rhe_sample_contract_plan's b * nchunks rows of ntiles * 16, out the f64
+// [G1 | P | R | zd | ud].
+int rhe_sample_contract(const void* tot, const void* drop, const void* nxe,
+                        const void* ct, const void* zt, const void* ut,
+                        int f64, void* part, void* out, int64_t n, int e,
+                        int e_geno, int b, int b2, int ncov, void* stream) {
+  ScShape sh = sc_plan(n, e, e_geno, b, b2, ncov, f64 != 0);
+  if (sh.smem > SC_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  sh.vec = n % 4 == 0;
+  const void* ops[6] = {tot, drop, nxe, ct, zt, ut};
+  for (const void* p : ops)
+    if (reinterpret_cast<uintptr_t>(p) % 16) sh.vec = 0;
+  auto* pt = static_cast<double*>(part);
+  auto* o = static_cast<double*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f64)
+    return sc_launch<double, 1>(tot, drop, nxe, ct, zt, ut, pt, o, sh, st);
+  return sh.tpt == 2
+      ? sc_launch<float, 2>(tot, drop, nxe, ct, zt, ut, pt, o, sh, st)
+      : sc_launch<float, 1>(tot, drop, nxe, ct, zt, ut, pt, o, sh, st);
 }
 
 }  // extern "C"

@@ -25,6 +25,10 @@ A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `launches[name]` counts kernel
 launches per entry of KERNELS (the square variants apart).
 
+Pass 2 adds sample_contract, a kernel with no TPU counterpart: one
+jackknife sample's length-N contractions (core/normal_eq.py) in one read of
+its stats, with its plain version sample_contract_plain.
+
 The Pallas wrappers' `fill`, `clean`, `word`, `interpret`, `tm`/`tn`,
 `dtype` and `planewise` arguments are gone: the clean word path never
 reads `fill`, decode is always clean and word-wise, and `planewise` was an
@@ -139,7 +143,11 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib.rhe_ytg.argtypes = [P, P, I, I, P, L, L, I, P]
     lib.rhe_ytg_acc.argtypes = [P, P, I, P, P, P, P, L, L, I, I, P]
     lib.rhe_ytg_acc2.argtypes = [P, P, P, I, P, P, P, L, L, I, I, P]
-    for fn in (lib.rhe_gp, lib.rhe_ytg, lib.rhe_ytg_acc, lib.rhe_ytg_acc2):
+    lib.rhe_sample_contract.argtypes = [P] * 6 + [I, P, P, L] + [I] * 5 + [P]
+    lib.rhe_sample_contract_plan.argtypes = [L, I, I, I,
+                                             ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.rhe_gp, lib.rhe_ytg, lib.rhe_ytg_acc, lib.rhe_ytg_acc2,
+               lib.rhe_sample_contract, lib.rhe_sample_contract_plan):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -411,9 +419,135 @@ def ytg_acc2_matmul(words: torch.Tensor, Yt1: torch.Tensor,
     return tot
 
 
+# ------------------------------------------------ pass-2 contractions
+PLAN_KEYS = ("na", "nk", "ntiles", "tpt", "tg", "nchunks", "ncs", "smem")
+
+
+def sample_contract_plan(E: int, ncov: int, N: int, f64: bool) -> dict:
+    """sample_contract's partition at these shapes, as the kernel computes
+    it (csrc/rhe_kernels.cu sc_plan; needs the built library): 4-row tiles
+    of the stats rows (na) and of the [C^T | z | u] rows (nk), the tiles
+    (ntiles), tiles a thread (tpt) and a group (tg), blocks along N
+    (nchunks), individuals a stage (ncs) and a block's dynamic shared
+    memory (smem, bytes). Raises ValueError past the card's shared memory
+    a block."""
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    if build().rhe_sample_contract_plan(N, E, ncov, int(f64), plan):
+        raise ValueError(f"sample_contract: E = {E} rows with ncov = {ncov} "
+                         f"need {plan[-1]} bytes of shared memory a block")
+    return dict(zip(PLAN_KEYS, plan))
+
+
+def _check_sample_args(tot, drop, nxe, Ct, Zt, Ut, B):
+    if tot.dtype not in (torch.float32, torch.float64) or tot.dim() != 3:
+        raise TypeError(f"tot must be a 3-D float32 or float64 tensor, got "
+                        f"{tot.dtype} {tuple(tot.shape)}")
+    E_geno, b2, N = tot.shape
+    ncov = 0 if Ct is None else Ct.shape[0]
+    want = {"tot": (E_geno, b2, N), "drop": (E_geno, b2, N),
+            "nxe": (None, b2, N), "Ct": (ncov, N), "Zt": (B, N),
+            "Ut": (B, N)}
+    for name, t in (("tot", tot), ("drop", drop), ("nxe", nxe), ("Ct", Ct),
+                    ("Zt", Zt), ("Ut", Ut)):
+        if t is None:
+            continue
+        if t.dtype != tot.dtype or t.device != tot.device:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, tot "
+                            f"{tot.dtype} on {tot.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        shape = tuple(t.shape)
+        if len(shape) != len(want[name]) or any(
+                w is not None and w != g for w, g in zip(want[name], shape)):
+            raise ValueError(f"{name} shape {shape}, expected {want[name]} "
+                             f"(None: any)")
+    if b2 != (2 * B if ncov else B) or (Ut is None) != (ncov == 0):
+        raise ValueError(f"b2 = {b2} with B = {B} and ncov = {ncov} (Ut "
+                         f"{'absent' if Ut is None else 'given'}): b2 is 2B "
+                         "with covariates (and Uzb), else B")
+
+
+def sample_contract_plain(tot, drop, nxe, Ct, Zt, Ut, B):
+    """sample_contract's contract in plain PyTorch: X = tot - drop (tot
+    without a drop) with the NxE rows appended, then multiply+reduce in the
+    stats' dtype for G1 (one row of X at a time), the projections C^T X and
+    the border products, cast to float64."""
+    X = tot if drop is None else tot - drop
+    if nxe is not None:
+        X = torch.cat([X, nxe])
+    XXz = X[:, :B]
+    f64 = torch.float64
+    G1 = torch.stack([torch.sum(x[None] * XXz, dim=(1, 2)) for x in XXz])
+    zd = torch.sum(XXz * Zt[None], dim=(1, 2))
+    if Ct is None:
+        P = X.new_zeros((X.shape[0], 0, B), dtype=f64)
+        return G1.to(f64), P, P, zd.to(f64), None
+
+    def project(A):
+        return torch.stack([torch.sum(Ct[:, None, :] * a[None], dim=-1)
+                            for a in A])                  # (E, ncov, B)
+
+    return (G1.to(f64), project(XXz).to(f64), project(X[:, B:]).to(f64),
+            zd.to(f64), torch.sum(XXz * Ut[None], dim=(1, 2)).to(f64))
+
+
+def sample_contract(tot: torch.Tensor, drop: torch.Tensor | None,
+                    nxe: torch.Tensor | None, Ct: torch.Tensor | None,
+                    Zt: torch.Tensor, Ut: torch.Tensor | None, *, B: int):
+    """One jackknife sample's length-N contractions in one pass over its
+    stats. Replaces no TPU kernel: pyrhe_tpu/core/normal_eq.py's _gram,
+    project_cov and _dotvec run as XLA multiply+reduce.
+
+    The sample's stats X (E, b2, N) are tot - drop (tot: (E_geno, b2, N)
+    totals, drop: the left-out block's stats or None) with the NxE rows nxe
+    (num_nxe, b2, N) or None appended. Ct (ncov, N) is C^T or None (no
+    covariates, b2 = B), Zt and Ut (B, N) the probes and projected probes
+    transposed (Ut None without covariates); all of tot's dtype, float32 or
+    float64, contiguous. Returns float64 (G1 (E, E), P (E, ncov, B),
+    R (E, ncov, B), zd (E,), ud (E,) or None):
+      G1[e, f] = <X[e, :B], X[f, :B]>,  P[e, :, b] = C^T X[e, b],
+      R[e, :, b] = C^T X[e, B + b],  zd[e] = <X[e, :B], Z^T>,
+      ud[e] = <X[e, :B], Uzb^T>.
+
+    Bound on the H100: bytes, the stats read once (GENIE E = 26, b2 = 20,
+    N = 100,352 f32, tot and drop: 418 MB, 125 µs at 3.35 TB/s; RHE k = 50:
+    642 MB, 192 µs). Design (csrc/rhe_kernels.cu sample_contract_kernel):
+    a grid over (N chunk, b), each block staging its chunk's rows of that b
+    in shared memory with tot - drop formed on the load, 4 x 4 output tiles
+    (half of G1's) shared by lanes over the chunk, products and sums in the
+    stats' dtype over at most 256 terms a lane, lane partials summed in
+    float64, then an ordered float64 merge over chunks and b in a second
+    kernel. No atomics, no tensor cores: deterministic, and the same for
+    the same shapes. A float64 run takes the same kernel in float64."""
+    _check_sample_args(tot, drop, nxe, Ct, Zt, Ut, B)
+    if not _launch_device(tot):
+        return sample_contract_plain(tot, drop, nxe, Ct, Zt, Ut, B)
+    lib = build()
+    E_geno, b2, N = tot.shape
+    E = E_geno + (0 if nxe is None else nxe.shape[0])
+    ncov = 0 if Ct is None else Ct.shape[0]
+    f64 = torch.float64
+    plan = sample_contract_plan(E, ncov, N, tot.dtype == f64)
+    part = torch.empty((B * plan["nchunks"], plan["ntiles"] * 16), dtype=f64,
+                       device=tot.device)
+    n_p = E * ncov * B
+    out = torch.empty(E * E + 2 * n_p + 2 * E, dtype=f64, device=tot.device)
+    with torch.cuda.device(tot.device):
+        _check(lib.rhe_sample_contract(
+            *(None if t is None else t.data_ptr()
+              for t in (tot, drop, nxe, Ct, Zt, Ut)),
+            int(tot.dtype == f64), part.data_ptr(), out.data_ptr(), N, E,
+            E_geno, B, b2, ncov, _stream(tot)), "sample_contract")
+    launches["sample_contract"] += 1
+    G1, P, R, zd, ud = torch.split(out, [E * E, n_p, n_p, E, E])
+    return (G1.view(E, E), P.view(E, ncov, B), R.view(E, ncov, B), zd,
+            ud if ncov else None)
+
+
 # Every kernel variant, as counted in `launches`.
 KERNELS = ("gp_matmul", "gp_matmul_square", "ytg_matmul",
-           "ytg_matmul_square", "ytg_acc_matmul", "ytg_acc2_matmul")
+           "ytg_matmul_square", "ytg_acc_matmul", "ytg_acc2_matmul",
+           "sample_contract")
 launches = dict.fromkeys(KERNELS, 0)
 
 

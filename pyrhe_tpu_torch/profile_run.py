@@ -36,7 +36,8 @@ from .utils import trace
 # device kernels of csrc/rhe_kernels.cu, by the names the profiler shows
 PORT_KERNELS = ("::gp_kernel<", "::gp_reduce(", "::ytg_kernel<",
                 "::ytg_acc_kernel<", "::ytg_fma_kernel<",
-                "::ytg_acc_fma_kernel<")
+                "::ytg_acc_fma_kernel<", "::sample_contract_kernel<",
+                "::sample_contract_merge(")
 
 
 def _device_us(evt) -> float:

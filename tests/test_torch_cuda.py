@@ -1,7 +1,8 @@
 """PyTorch port on the CUDA card: each kernel against its plain version at
 edge shapes (ragged stage-2 rows, several stage-1 column tiles, one row
 tile) with f32, split2 and unsplit bf16 operands; the engine on the card
-against the port on the CPU (float32, and float64 at rtol 1e-10); bf16
+against the port on the CPU (float32, and float64 at rtol 1e-10); the
+pass-2 kernel against its plain version and once a jackknife sample; bf16
 streaming == cached, and the hybrid and host caches bitwise equal to the
 full cache; checkpointed runs crashed and resumed bitwise; the phenotype
 sweep's merged traits bitwise equal to solo runs; and run_sharded() at
@@ -101,9 +102,10 @@ def test_cuda_kernels_match_plain(cuda_device, split, m, n, W, Q):
     assert torch.equal(got, tot0 + ((a1 + a2) - rank1) * mask)
     assert_close(got, tk.ytg_acc2_plain(w, Yop, Yop2, rank1, mask,
                                         tot0.clone(), split))
-    # gp, gp square, ytg, ytg square, ytg_acc, ytg_acc2 (tk.KERNELS order)
+    # gp, gp square, ytg, ytg square, ytg_acc, ytg_acc2, sample_contract
+    # (tk.KERNELS order)
     assert [tk.launches[k] - before[k] for k in tk.KERNELS] == [
-        1, 1, 4, 2, 2, 1]
+        1, 1, 4, 2, 2, 1, 0]
 
 
 @pytest.mark.cuda
@@ -203,6 +205,108 @@ def test_cuda_ytg_family(cuda_device, square, operand, m, n, Q):
         assert torch.equal(out, tot0 + ((a + a2) - rank1) * mask)
         assert_close(out, tk.ytg_acc2_plain(w, Yop, Yop2, rank1, mask,
                                             tot0.clone(), split))
+
+
+def sample_inputs(E_geno, num_nxe, B, ncov, N, dtype, dev, drop=True):
+    """One jackknife sample's kernel operands (tot, drop, nxe, Ct, Zt, Ut),
+    random, of dtype on dev; N-indexed rows contiguous."""
+    gen = torch.Generator(device=dev).manual_seed(E_geno * 1000 + B + N)
+    b2 = 2 * B if ncov else B
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    return (rand(E_geno, b2, N), rand(E_geno, b2, N) if drop else None,
+            rand(num_nxe, b2, N) if num_nxe else None,
+            rand(ncov, N) if ncov else None, rand(B, N),
+            rand(B, N) if ncov else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("E_geno,num_nxe,B,ncov,N,drop", [
+    (24, 2, 10, 4, 100352, True),     # genie.cached's samples (E = 26)
+    (8, 0, 50, 4, 100352, True),      # rhe_k50's (b2 = 100)
+    (8, 0, 50, 4, 100352, False),     # its full sample: tot alone
+    (33, 0, 3, 2, 5000, True),        # E = 33: tile groups; a ragged chunk
+    (38, 2, 3, 4, 5000, True),        # E = 40: 95 tiles, f32 two a thread
+                                      # in two groups (f64: three)
+    (5, 1, 4, 0, 4099, True),         # no covariates; N % 4 != 0
+    (1, 0, 1, 0, 2048, False),        # one row, one probe
+])
+def test_cuda_sample_contract_matches_plain(cuda_device, dtype, E_geno,
+                                            num_nxe, B, ncov, N, drop):
+    """The pass-2 kernel against its plain version on the same stats (X =
+    tot - drop rounded in dtype, then float64 sums): each output within
+    1e-5 (float32: runs of at most 256 float32 terms) or 1e-13 (float64) of
+    the sum of its terms' magnitudes; two launches bitwise equal; one launch
+    a call."""
+    ops = sample_inputs(E_geno, num_nxe, B, ncov, N, dtype, cuda_device,
+                        drop)
+    before = tk.launches["sample_contract"]
+    got = tk.sample_contract(*ops, B=B)
+    again = tk.sample_contract(*ops, B=B)
+    assert tk.launches["sample_contract"] - before == 2
+    tot, drop_x, nxe, Ct, Zt, Ut = ops
+    X = tot if drop_x is None else tot - drop_x
+    d = lambda t: None if t is None else t.double()
+    a = lambda t: None if t is None else t.double().abs()
+    want = tk.sample_contract_plain(X.double(), None, d(nxe), d(Ct), d(Zt),
+                                    d(Ut), B)
+    mags = tk.sample_contract_plain(X.double().abs(), None, a(nxe), a(Ct),
+                                    a(Zt), a(Ut), B)
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    E = E_geno + num_nxe
+    shapes = [(E, E), (E, ncov, B), (E, ncov, B), (E,), (E,)]
+    for name, g, g2, w, m, shape in zip(("G1", "P", "R", "zd", "ud"), got,
+                                        again, want, mags, shapes):
+        if w is None:
+            assert g is None and ncov == 0, name
+            continue
+        assert g.dtype == torch.float64 and g.shape == shape, name
+        assert torch.equal(g, g2), name
+        if g.numel():
+            err = ((g - w).abs() / m.clamp_min(1e-300)).max().item()
+            assert err <= tol, (name, err)
+    assert torch.equal(got[0], got[0].T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,ncov,f64,want", [
+    # GENIE G+GxE+NxE, 2 environments, k = 10, f32: 7 x 7 X tiles (28 of
+    # the upper triangle), [C | z | u] in 2 tiles, two tiles a thread
+    (26, 4, False, dict(na=7, nk=2, ntiles=56, tpt=2, tg=56, nchunks=49,
+                        ncs=128)),
+    # RHE k = 50, 8 bins: 11 tiles, one a thread
+    (8, 4, False, dict(na=2, nk=2, ntiles=11, tpt=1, tg=11, nchunks=49,
+                       ncs=256)),
+    # float64 takes one tile a thread, so GENIE's 56 take two groups
+    (26, 4, True, dict(ntiles=56, tpt=1, tg=32, ncs=64)),
+    # E = 40: 95 tiles, two groups of 64 in f32
+    (40, 4, False, dict(na=10, nk=2, ntiles=95, tpt=2, tg=64)),
+    # one row, no covariates: X x X and X x z
+    (1, 0, False, dict(na=1, nk=1, ntiles=2, tpt=1, tg=2)),
+])
+def test_sample_contract_plan(cuda_device, E, ncov, f64, want):
+    """The kernel's partition as the built library computes it; a block
+    past the card's shared memory is refused before any launch."""
+    plan = tk.sample_contract_plan(E, ncov, 100352, f64)
+    assert {k: plan[k] for k in want} == want
+    assert plan["smem"] <= 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.sample_contract_plan(700, 4, 100352, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("model", ["rhe", "genie"])
+def test_cuda_sample_contract_once_a_sample(cuda_device, dataset, model,
+                                            dtype):
+    """Every estimate launches the pass-2 kernel once a jackknife sample,
+    J + 1 times, float64 (mm_mode exact) too."""
+    before = tk.launches["sample_contract"]
+    eng = run_engine(dataset, model, "cuda", dtype=dtype)
+    assert tk.launches["sample_contract"] - before == eng.J + 1
 
 
 @pytest.fixture(scope="module")

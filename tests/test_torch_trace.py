@@ -178,7 +178,7 @@ def test_by_span_follows_the_engine_spans(small_dataset, streaming):
     for k, e in enumerate(muls, 10**9):
         events += _launch(e.start_ns() + e.duration_ns() // 2, k, 1000)
     got = dict(by_span(events))
-    assert {"pyrhe.gram", "pyrhe.project_cov", "pyrhe.dotvec"} <= set(got)
+    assert {"pyrhe.sample_contract", "pyrhe.cov_gram"} <= set(got)
     assert all(k.startswith(trace.PREFIX) for k in got)
     assert sum(got.values()) == pytest.approx(len(muls) * 1e-6)
 
@@ -220,9 +220,9 @@ def test_engine_spans_nest_as_opened(small_dataset, streaming):
     for name in ("loo_sub", "assemble_Tq"):
         assert parents(evs, name) == ["pyrhe.sample"]
         assert len(named(evs, name)) == J + 1
-    for name in ("gram", "project_cov", "dotvec"):
+    for name in ("sample_contract", "cov_gram"):
         assert parents(evs, name) == ["pyrhe.assemble_Tq"], name
-    assert len(named(evs, "gram")) == 3 * (J + 1)
+        assert len(named(evs, name)) == J + 1
     assert parents(evs, "results") == ["pyrhe.assemble"]
     assert parents(evs, "sync") == ["pyrhe.assemble", "pyrhe.precompute"]
 
