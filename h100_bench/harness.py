@@ -140,7 +140,8 @@ def prepare(cell: Cell, seed: int, device: str, cache: str = CACHE):
     from pyrhe_tpu_torch.utils.logger import Logger
 
     cfg, tr = cell.config, cell.traffic
-    lay = layout.layout(cfg)             # refuses what the reference lacks
+    model = layout.model(cfg)            # refuses a model with no file
+    lay = model.layout(cfg)
     prefix = cohort_prefix(cfg, cache)
     side = inputs.write_side_files(cfg, seed, os.path.join(cache, "run"))
     ms = model_seed(seed)
@@ -163,10 +164,10 @@ def prepare(cell: Cell, seed: int, device: str, cache: str = CACHE):
     problem = reference.Problem(
         bed_path=prefix + ".bed", num_indiv=cfg["num_indiv"],
         num_snp=cfg["num_snp"], annot=cohort.annotation(cohort.geometry(cfg)),
-        cov=side["cov"], env=side["env"], layout=lay,
+        cov=side["cov"], env=side["env"], model=model, layout=lay,
         num_random_vec=cfg["num_random_vec"], num_jack=J, seed=ms)
-    g = inputs.genetic_value(cfg, seed, problem.bed_path, problem.annot,
-                             device)
+    genetic_value = getattr(model, "genetic_value", inputs.genetic_value)
+    g = genetic_value(cfg, seed, problem.bed_path, problem.annot, device)
     return Prepared(cell, seed, data, spec, run_cfg, problem, g, load_s, log)
 
 

@@ -12,7 +12,8 @@ comes from the run's seed:
   - per-SNP effects beta_s ~ N(0, h2_k / M_k) of SNP s in bin k, from
     default_rng([seed, 103]), and the genetic value g = Σ_s x_s beta_s over
     the standardized dosages (missing calls at the mean), computed once
-    in set-up on the device;
+    in set-up on the device: the additive genetic value, which a model
+    file (layout.py) may replace with a `genetic_value` of its own;
   - per request r, noise ~ N(0, 1 - Σ_k h2_k) from
     default_rng([seed, 104, r]) and a phenotype (g + noise) per trait,
     centered, as the port's loader centers a phenotype file.
@@ -78,7 +79,8 @@ def write_table(path: str, values: np.ndarray, prefix: str) -> str:
 
 def genetic_value(config: dict, seed: int, bed_path: str, annot: np.ndarray,
                   device) -> np.ndarray:
-    """g = Σ_s x_s beta_s (N,) float64 over the cohort's .bed."""
+    """The additive g = Σ_s x_s beta_s (N,) float64 over the cohort's
+    .bed."""
     n, m = config["num_indiv"], config["num_snp"]
     len_bin = annot.sum(0)
     sd = np.sqrt(config["h2_per_bin"] / np.maximum(len_bin, 1))

@@ -1,31 +1,56 @@
-"""The variance components of a configuration, in one place.
+"""The variance components of a configuration, and the model file that
+states them.
 
-reference.py computes them and work.py counts their work; both take them
-from here, from the configuration's `model`, `genie_model`, `num_bin` and
-`num_env`:
+A configuration's `model` names a file h100_bench/models/<model>.py,
+loaded by path (as run.py loads metrics/<name>.py). What is particular to
+one variance-component model is in that file; reference.py, work.py,
+inputs.py and harness.py take it from there and know no model by name. A
+model file gives:
 
-  - `rhe`: one genotype component, G (num_bin rows);
-  - `genie`, `genie_model` G: G alone; G+GxE: G and one GxE component per
-    environment (e ⊙ x); G+GxE+NxE: those and one noise-by-environment
-    row per environment.
+  - `layout(config) -> Layout`: the model's rows, below; it raises
+    ValueError, naming the configuration, for settings it cannot take;
+  - `rows(layout, dosages, seed, env, dtype)`: for one jackknife block,
+    the standardized (m, N) rows each genotype component multiplies, in
+    the layout's order (an iterable), from the block's raw (m, N) int8
+    dosages (-1 = missing, before any fill or standardization), the
+    block's HWE seed and the environments (N, num_env) or None, in
+    `dtype`;
+  - `analytic_rows(env, P, Y) -> (XXP, yXXy)`, where the layout has
+    analytic rows: their (num_analytic, N, b2) XXP from the probe side P
+    and (num_analytic, R) yXXy from the residualized phenotypes Y;
+  - optionally `genetic_value(config, seed, bed_path, annot, device)`,
+    the phenotypes' genetic value; without it, inputs.genetic_value's
+    additive one.
 
-Rows are ordered G's bins, then each environment's GxE bins, then the NxE
-rows (PyRHE's genie.py order). A G row's trace is N; a GxE or NxE row's is
-the probes' estimate. Any other model (RHE-DOM's dominance component, for
-one) is refused by name: the plain reference does not compute it.
+work.py counts each genotype component as one stage-1 and one stage-2
+product of a block. The port builds its own model from the
+configuration (harness.prepare). A configuration whose model has no file
+is refused by name.
 """
 from __future__ import annotations
 
+import importlib.util
+import os
+import re
 from dataclasses import dataclass
 
-GENIE_MODELS = ("G", "G+GxE", "G+GxE+NxE")
+MODELS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "models")
 
 
 @dataclass(frozen=True)
 class Layout:
-    components: tuple    # environment index per genotype component, None: G
+    """Rows in order: each genotype component's num_bin bins, then the
+    analytic rows. A genotype row's M is its bin's SNP count; an analytic
+    row's is 1."""
+    components: tuple   # names of the genotype components, in row order
     num_bin: int
-    num_nxe: int
+    num_analytic: int   # rows the model computes whole (analytic_rows)
+    stochastic: tuple   # per row: is its trace the probes' estimate, not N
+
+    def __post_init__(self):
+        if len(self.stochastic) != self.E:
+            raise ValueError(f"{len(self.stochastic)} stochastic flags for "
+                             f"{self.E} rows")
 
     @property
     def E_geno(self) -> int:
@@ -33,31 +58,33 @@ class Layout:
 
     @property
     def E(self) -> int:
-        return self.E_geno + self.num_nxe
+        return self.E_geno + self.num_analytic
 
-    def stochastic(self) -> list:
-        """Per row: is its trace the probes' estimate (GxE, NxE) rather
-        than N (G)?"""
-        return [False] * self.num_bin + [True] * (self.E - self.num_bin)
+
+def model_files() -> list:
+    """The names of the model files there are."""
+    return sorted(f[:-3] for f in os.listdir(MODELS)
+                  if f.endswith(".py") and not f.startswith("_"))
+
+
+def model(config: dict):
+    """The configuration's model file as a module; raises ValueError,
+    naming the configuration and the model files there are, when its
+    `model` has none."""
+    name = config["model"]
+    path = os.path.join(MODELS, f"{name}.py")
+    if not (isinstance(name, str) and re.fullmatch(r"[A-Za-z0-9_]+", name)
+            and os.path.isfile(path)):
+        raise ValueError(f"configuration {config.get('name')!r}: no model "
+                         f"file for model {name!r} (model files: "
+                         f"{', '.join(model_files())})")
+    spec = importlib.util.spec_from_file_location(
+        "h100_bench_model_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def layout(config: dict) -> Layout:
-    """The Layout of a configuration; raises ValueError, naming it, for a
-    model the reference cannot compute."""
-    model, K = config["model"], config["num_bin"]
-    num_env = config.get("num_env") or 0
-    if model == "rhe":
-        return Layout((None,), K, 0)
-    if model == "genie":
-        gm = config.get("genie_model")
-        if gm not in GENIE_MODELS:
-            raise ValueError(f"configuration {config.get('name')!r}: the "
-                             f"reference has no GENIE model {gm!r} "
-                             f"({' | '.join(GENIE_MODELS)})")
-        if gm != "G" and num_env < 1:
-            raise ValueError(f"configuration {config.get('name')!r}: "
-                             f"{gm} needs num_env >= 1")
-        envs = tuple(range(num_env)) if gm != "G" else ()
-        return Layout((None, *envs), K, num_env if gm == "G+GxE+NxE" else 0)
-    raise ValueError(f"configuration {config.get('name')!r}: the reference "
-                     f"cannot compute model {model!r} (rhe | genie)")
+    """The Layout of a configuration, from its model file."""
+    return model(config).layout(config)

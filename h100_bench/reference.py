@@ -1,9 +1,10 @@
-"""Plain reference of the estimate the benchmark times: RHE and GENIE
-(G, G+GxE, G+GxE+NxE), the components as layout.py lists them.
+"""Plain reference of the estimate the benchmark times, for any model
+with a file under models/ (layout.py): the variance components as its
+Layout lists them, the rows as its `rows` and `analytic_rows` give them.
 
 Plain PyTorch and NumPy, in float64, written from the method (randomized
-Haseman-Elston regression, PyRHE's base.py / genie.py normal equations) and
-not from the port: it imports nothing of `pyrhe_tpu_torch` and takes none
+Haseman-Elston regression, PyRHE's base.py normal equations) and not from
+the port: it imports nothing of `pyrhe_tpu_torch` and takes none
 of its arrays. From the raw inputs (the .bed, the annotation, covariates,
 environments, phenotypes and the seed) it works out again everything the
 port derives:
@@ -17,15 +18,18 @@ port derives:
     or 2 by the HWE genotype frequencies at the observed allele frequency;
   - standardization x = (g - mean) / sqrt(mean (1 - mean / 2)) over the
     filled dosages (0 where the variance is 0);
-  - per bin k and component c (G: x; GxE on environment e: e ⊙ x):
-    XXP = Σ_{s in k} x_s (x_s' [z | Uz]) and yXXy = Σ_{s in k} (x_s' ỹ)²,
-    ỹ the covariate-residualized phenotype; NxE on environment e:
-    XXP = e² ⊙ [z | Uz], yXXy = ‖e ⊙ ỹ‖², M = 1;
+    (the model file's `rows` start from the raw dosages and call
+    `standardized` for the rows that need it);
+  - per bin k and genotype component c, r_s the rows the model gives c:
+    XXP = Σ_{s in k} r_s (r_s' [z | Uz]) and yXXy = Σ_{s in k} (r_s' ỹ)²,
+    ỹ the covariate-residualized phenotype; the model's analytic rows
+    (M = 1) as its `analytic_rows` computes them;
   - leave-one-block-out sums, the (E+1) x (E+1) normal equations
       T[k,l] = (<XXz_k, XXz_l> + <XXUz_k, UXXz_l> - 2 <UXXz_k, XXz_l>)
                / (B M_k M_l)
-      T[k,E] = tr_k - <XXz_k, Uz> / (B M_k), tr_k = N for G rows and
-               <XXz_k, z> / (B M_k) for GxE and NxE rows,
+      T[k,E] = tr_k - <XXz_k, Uz> / (B M_k), tr_k = N, or
+               <XXz_k, z> / (B M_k) for the rows the Layout marks
+               stochastic,
       T[E,E] = N - #covariates, q[k] = yXXy_k / M_k, q[E] = ỹ'ỹ
     and sigma² = T^-1 q for the full sample and every leave-one-out one.
 
@@ -56,8 +60,9 @@ class Problem:
     num_snp: int
     annot: np.ndarray            # (M, K) 0/1
     cov: np.ndarray | None       # (N, C)
-    env: np.ndarray | None       # (N, num_env), where the layout needs it
-    layout: Layout               # the variance components (layout.py)
+    env: np.ndarray | None       # (N, num_env)
+    model: object                # the configuration's model file
+    layout: Layout               # its variance components
     num_random_vec: int
     num_jack: int
     seed: int
@@ -143,12 +148,11 @@ class _Math:
         return _tf32(a) @ _tf32(b) if self.tf32 else a @ b
 
 
-def block_stats(X, annot, P, Y, env, components, math):
-    """Per-bin stats of one block: XXP (n_comp*K, N, b2), yXXy
-    (n_comp*K, R)."""
+def block_stats(rows, annot, P, Y, math):
+    """Per-bin stats of one block from each genotype component's rows:
+    XXP (n_comp*K, N, b2), yXXy (n_comp*K, R)."""
     out_X, out_y = [], []
-    for eidx in components:
-        Xc = X if eidx is None else X * env[:, eidx][None, :]
+    for Xc in rows:
         U = math.mm(Xc, P)                          # (m, b2)
         V = math.mm(Xc, Y)                          # (m, R)
         for k in range(annot.shape[1]):
@@ -228,28 +232,27 @@ def estimate(prob: Problem, pheno: np.ndarray, device="cpu",
 
     def stats(j):
         s, e = bounds[j]
-        X = standardized(decode(packed[s:e], n), prob.seed, dt)
-        return block_stats(X, annot[s:e], P, Yt, env, comps, math)
+        rows = prob.model.rows(lay, decode(packed[s:e], n), prob.seed, env,
+                               dt)
+        return block_stats(rows, annot[s:e], P, Yt, math)
 
     tot_X = tot_y = None
     for j in range(J):
         bX, by = stats(j)
         tot_X = bX if tot_X is None else tot_X + bX
         tot_y = by if tot_y is None else tot_y + by
-    stoch = torch.as_tensor(lay.stochastic(), device=dev)
-    nxe_X = nxe_y = None
-    if lay.num_nxe:
-        e2 = (env * env).T[:, :, None]                 # (num_env, N, 1)
-        nxe_X = e2 * P[None, :, :]
-        nxe_y = ((env.T[:, :, None] * Yt[None]) ** 2).sum(1)
+    stoch = torch.as_tensor(lay.stochastic, device=dev)
+    an_X = an_y = None
+    if lay.num_analytic:
+        an_X, an_y = prob.model.analytic_rows(env, P, Yt)
     len_bin = prob.annot.sum(0).astype(np.int64)
     m_full = np.concatenate([np.tile(len_bin, len(comps)),
-                             np.ones(lay.num_nxe, np.int64)])
+                             np.ones(lay.num_analytic, np.int64)])
 
     def sample(X, y, counts):
-        if nxe_X is not None:
-            X = torch.cat([X, nxe_X])
-            y = torch.cat([y, nxe_y])
+        if an_X is not None:
+            X = torch.cat([X, an_X])
+            y = torch.cat([y, an_y])
         M = torch.as_tensor(counts, device=dev)
         return normal_equations(X, y, M, Zt, Uzt, Ct, Qt, stoch, n, qlast,
                                 math)

@@ -67,26 +67,38 @@ def test_sigma_gap_fails_a_nan():
 
 
 def test_layout_of_each_model(tiny):
+    assert {"genie", "rhe"} <= set(layout.model_files())
     cfg = tiny("genie.cached").config
     K, n_env = cfg["num_bin"], cfg["num_env"]
     expect = {"G+GxE+NxE": (1 + n_env, n_env), "G+GxE": (1 + n_env, 0),
               "G": (1, 0)}
     for gm, (comps, nxe) in expect.items():
         lay = layout.layout({**cfg, "genie_model": gm})
-        assert (len(lay.components), lay.num_nxe) == (comps, nxe)
+        assert (len(lay.components), lay.num_analytic) == (comps, nxe)
         assert lay.E == comps * K + nxe
-        assert lay.stochastic().count(False) == K
+        assert lay.stochastic.count(False) == K
     rhe = layout.layout(tiny("rhe_k50.cached").config)
-    assert rhe.components == (None,) and rhe.E == K
+    assert len(rhe.components) == 1 and rhe.E == K
+    assert rhe.stochastic == (False,) * K
 
 
 @pytest.mark.parametrize("over", [{"model": "rhe_dom"},
+                                  {"model": "no_such_model"},
+                                  {"model": "../layout"},
                                   {"genie_model": "G+NxE"},
                                   {"genie_model": "G+GxE", "num_env": 0}])
 def test_a_model_the_reference_lacks_is_refused(over, tiny, cache):
     cell = tiny("genie.cached", **over)
-    with pytest.raises(ValueError, match="genie_gxe_nxe"):
+    if over.get("model") in layout.model_files():
+        # a model is refused only while it has no file under models/
+        assert callable(layout.model(cell.config).layout)
+        return
+    with pytest.raises(ValueError, match="genie_gxe_nxe") as err:
         harness.prepare(cell, 1, "cpu", cache)
+    if "model" in over:
+        # a model with no file under models/: the message lists the files
+        files = ", ".join(layout.model_files())
+        assert f"model files: {files})" in str(err.value)
     with pytest.raises(ValueError):
         work.estimate_work(cell.config, cell.traffic,
                            np.eye(cell.config["num_bin"]))
@@ -98,7 +110,7 @@ def test_the_work_follows_the_layout(tiny):
                                    % cfg["num_bin"]]
     flops = {gm: work.estimate_work({**cfg, "genie_model": gm}, tr,
                                     annot)["flops"]
-             for gm in layout.GENIE_MODELS}
+             for gm in layout.model(cfg).GENIE_MODELS}
     assert flops["G"] < flops["G+GxE"] < flops["G+GxE+NxE"]
     rhe = work.estimate_work({**cfg, "model": "rhe"}, tr, annot)
     assert rhe["flops"] == flops["G"]

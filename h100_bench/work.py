@@ -9,9 +9,11 @@ Work of one estimate, counted from the cell's shapes (the algorithm's
 products, whatever implements them):
 
   - stage 1 of each block: the dosages g (m x N) times the probe side
-    [z | Uz | ỹ] once per environment variant: 2 m N Bp V useful flops
-    (the mask column and the split's second half are not useful); bytes:
-    the 2-bit genotypes, the probe side and the (m, Bp V) result;
+    [z | Uz | ỹ] once per genotype component (V = the Layout's
+    components: an environment variant of the probe side, or a form of
+    the dosages): 2 m N Bp V useful flops (the mask column and the
+    split's second half are not useful); bytes: the 2-bit genotypes, the
+    probe side and the (m, Bp V) result;
   - stage 2 of each block: per bin, the bin's standardized rows times
     their stage-1 rows, for each genotype component: 2 N b2 V nnz useful
     flops, nnz the block's annotation entries (the products a bin's SNPs
